@@ -1,0 +1,64 @@
+"""Bag-of-words vocabulary: descriptor -> word assignment as one matmul.
+
+Counterpart of the per-frame part of the JAX package's `associate/vocabulary.py`
+(the role of DBoW2's ORBVocabulary): a flat binary codebook of W words; a
+descriptor's word is the codeword at least Hamming distance (+/-1 dot
+product argmax, first index on ties).
+
+The codebook for W words is the shipped trained one when
+`data/vocab{W}.npz` or `data/vocab.npz` holds W words, tried in that order
+as the JAX `System` registers them (the keyframes' cached word ids in a map
+were assigned with it), else the seeded random codebook."""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+from dr_slam_torch.ops.orb import bits_to_signs, unpack_bits
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
+
+
+def _random_codebook_signs(n_words: int, seed: int = 3) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    bits = rng.rand(n_words, 256) > 0.5
+    return bits.astype(np.float32) * 2.0 - 1.0
+
+
+def words_to_signs(packed_words: np.ndarray) -> np.ndarray:
+    """(W, 8) uint32 packed 256-bit words -> (W, 256) float32 +/-1."""
+    bits = np.unpackbits(
+        packed_words.astype("<u4").view(np.uint8), bitorder="little"
+    ).reshape(packed_words.shape[0], 256)
+    return bits.astype(np.float32) * 2.0 - 1.0
+
+
+@functools.lru_cache(maxsize=4)
+def get_codebook_signs(n_words: int) -> np.ndarray:
+    """(W, 256) +/-1 codebook for W words (trained if shipped, else random)."""
+    for name in (f"vocab{n_words}.npz", "vocab.npz"):
+        path = os.path.join(_DATA_DIR, name)
+        if not os.path.exists(path):
+            continue
+        with np.load(path) as data:
+            words = data["words"]
+        if words.shape[0] == n_words:
+            return words_to_signs(words)
+    return _random_codebook_signs(n_words)
+
+
+@functools.lru_cache(maxsize=8)
+def _codebook(n_words: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(get_codebook_signs(n_words)).to(device)
+
+
+def word_ids(desc: torch.Tensor, n_words: int = 4096) -> torch.Tensor:
+    """(K, 8) packed descriptors -> (K,) int32 vocabulary word ids."""
+    signs = bits_to_signs(unpack_bits(desc))
+    dot = signs @ _codebook(n_words, desc.device).T
+    return torch.argmax(dot, -1).to(torch.int32)
