@@ -81,8 +81,8 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int] \
         + [ctypes.c_void_p] * 9
     fn.restype = ctypes.c_int
-    lib.gated_top2_hamming_tile.argtypes = []
-    lib.gated_top2_hamming_tile.restype = ctypes.c_int
+    lib.gated_top2_hamming_chunk.argtypes = []
+    lib.gated_top2_hamming_chunk.restype = ctypes.c_int
     return lib
 
 
@@ -92,7 +92,7 @@ _KERNEL_ARGS = {
     "kp_valid": (torch.bool, (), 1), "kp_octave": (torch.int32, (), 4),
     "pt_desc": (torch.int32, (8,), 16), "pt_uv": (torch.float32, (2,), 8),
     "pt_rad": (torch.float32, (), 4), "pt_lvl": (torch.int32, (), 4),
-    "pt_si": (torch.bool, (), 1), "pt_valid": (torch.bool, (), 1),
+    "pt_si": (torch.bool, (), 1), "pt_valid": (torch.bool, (), 16),
 }
 
 
@@ -139,7 +139,7 @@ def gated_top2_hamming(kp_desc, kp_uv, kp_valid, kp_octave,
     bufs = kernel_buffers(K, NC, dev)
     launch_kernel(inputs, bufs)
     gated_top2_hamming.launches += 1
-    best, second, idx, colk = bufs[4:]
+    best, second, idx, colk = bufs[-4:]
     return best, idx, second, colk
 
 
@@ -147,15 +147,15 @@ gated_top2_hamming.launches = 0
 
 
 def kernel_buffers(K: int, NC: int, device) -> tuple:
-    """The kernel's scratch and outputs, uninitialised: per-tile partials
-    (best, second, argbest), the tile live flags, then best, second, idx
-    and colk."""
-    n_tiles = NC // _library().gated_top2_hamming_tile()
+    """The kernel's scratch and outputs, uninitialised: per-chunk row keys
+    (best, second), the live slots in ascending order, the per-slot column
+    keys, the live count, then best, second, idx and colk."""
+    n_chunks = -(-NC // _library().gated_top2_hamming_chunk())
     f32, i32 = torch.float32, torch.int32
-    return (torch.empty((n_tiles, K), dtype=f32, device=device),
-            torch.empty((n_tiles, K), dtype=f32, device=device),
-            torch.empty((n_tiles, K), dtype=i32, device=device),
-            torch.empty((n_tiles,), dtype=i32, device=device),
+    return (torch.empty((n_chunks, K, 2), dtype=i32, device=device),
+            torch.empty(NC, dtype=i32, device=device),
+            torch.empty(NC, dtype=i32, device=device),
+            torch.empty(1, dtype=i32, device=device),
             torch.empty(K, dtype=f32, device=device),
             torch.empty(K, dtype=f32, device=device),
             torch.empty(K, dtype=i32, device=device),

@@ -40,7 +40,8 @@ def _check(args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,NC,n_valid", [(64, 1024, 600), (1024, 32768, 3000),
-                                          (1000, 4608, 4608)])
+                                          (1000, 4608, 4608),
+                                          (1000, 32768, 3000)])
 def test_kernel_bit_exact_vs_plain(cuda_device, K, NC, n_valid):
     """Bit-exact with ties across tiles (rows) and duplicated keypoints
     (columns), at the main path's shapes and at ragged keypoint counts."""
@@ -53,13 +54,70 @@ def test_kernel_bit_exact_vs_plain(cuda_device, K, NC, n_valid):
 
 
 @pytest.mark.cuda
-def test_kernel_all_dead_tiles(cuda_device):
-    args = list(synthetic_matcher_inputs(K=256, NC=2048,
-                                         n_valid=512, n_ties=0, seed=3))
+@pytest.mark.parametrize("K,NC", [(256, 2048), (1024, 32768)])
+def test_kernel_all_dead_tiles(cuda_device, K, NC):
+    """No valid candidate at all, at a small and at the main path's shape."""
+    args = list(synthetic_matcher_inputs(K=K, NC=NC, n_valid=512, n_ties=0,
+                                         seed=3))
     args[9] = torch.zeros_like(args[9])
     best, idx, second, colk = _check(tuple(args))
     assert torch.isinf(best).all() and torch.isinf(second).all()
     assert (idx == 0).all() and (colk == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernel_full_occupancy(cuda_device):
+    """All 32768 slots valid: the compaction's full pass, 256 chunks of
+    items and 256 partials per keypoint."""
+    args = list(synthetic_matcher_inputs(n_valid=32768, seed=12))
+    args[9] = torch.ones_like(args[9])
+    best, idx, second, colk = _check(tuple(args))
+    assert int(torch.isfinite(best).sum()) > 512
+    assert int((colk > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_kernel_valid_candidates_scattered(cuda_device):
+    """Live slots spread over every 128-slot tile rather than packed low."""
+    args = synthetic_matcher_inputs(n_valid=3000, seed=13)
+    perm = torch.from_numpy(np.random.RandomState(13).permutation(32768))
+    perm = perm.to(cuda_device)
+    args = args[:4] + tuple(a[perm].contiguous() for a in args[4:])
+    assert int(args[9].view(-1, 128).any(1).sum()) >= 250
+    _check(args)
+
+
+@pytest.mark.cuda
+def test_kernel_row_ties_in_different_chunks(cuda_device):
+    """Three copies of one keypoint at compacted positions 3, 140 and 290
+    (three chunks of 128): best = second = 0 and the lowest slot wins."""
+    args = list(synthetic_matcher_inputs(K=256, NC=4096, n_valid=2000,
+                                         n_ties=0, seed=14))
+    k = int(torch.nonzero(args[2])[0])
+    slots = torch.nonzero(args[9]).flatten()[[3, 140, 290]]
+    for c in slots.tolist():
+        args[4][c], args[5][c], args[7][c] = args[0][k], args[1][k], args[3][k]
+        args[6][c], args[8][c] = 28.0, True
+    best, idx, second, colk = _check(tuple(args))
+    assert float(best[k]) == 0.0 and float(second[k]) == 0.0
+    assert int(idx[k]) == int(slots[0])
+
+
+@pytest.mark.cuda
+def test_kernel_ungated_valid_candidates_keep_colk_zero(cuda_device):
+    """Valid candidates that no keypoint gates (far away, or a radius of 0,
+    below 0 or NaN, with and without the scale flag) keep colk = 0."""
+    args = list(synthetic_matcher_inputs(K=512, NC=4096, n_valid=2000,
+                                         n_ties=8, seed=15))
+    sel = torch.arange(4096, device=cuda_device) % 5
+    args[5] = torch.where((sel == 0)[:, None], torch.full_like(args[5], 1e9),
+                          args[5])
+    for v, rad in ((1, 0.0), (2, -5.0), (3, float("nan"))):
+        args[6] = torch.where(sel == v, torch.full_like(args[6], rad), args[6])
+    best, idx, second, colk = _check(tuple(args))
+    unreached = args[9] & (sel < 4)
+    assert bool(unreached.any()) and bool((colk[unreached] == 0).all())
+    assert bool((colk[args[9] & (sel == 4)] > 0).any())
 
 
 @pytest.mark.cuda
