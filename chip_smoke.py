@@ -24,6 +24,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
    three CUDA kernels from torch.profiler. Last, a pipelined
    loop of 240 frames (the four frames cycled, as bench.py's
    bench_odometry does) is timed.
+4. tracker: `Tracker(cfg, device="cuda").process_frame` from an empty map
+   over the 24 frames of dr_slam_torch/data/mapping_corridor.npz (made by
+   scripts/make_torch_mapping_fixture.py), in the default deferred mode
+   with a synchronise after each frame: initialization, tracking, the
+   keyframe decision, keyframe insertion and the local-mapping pass. Frame
+   0 must initialize, every frame be OK, the keyframes fall at the JAX
+   tracker's frames, the keyframe count equal the JAX one, the pose and the
+   point count stay within the bounds of dr_slam_torch/_smoke.py
+   (`tracker_gaps`), and the matcher launch exactly twice per tracked
+   frame. Prints each keyframe's stage times (CUDA events around each
+   `kf.*` stage), the pass's frames/s and its peak device memory.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -165,8 +176,10 @@ def main() -> None:
     sys.path.insert(0, root)
     import numpy as np
 
-    from dr_slam_torch._smoke import (card_line, load_fixture, pipelined,
-                                      synthetic_matcher_inputs)
+    from dr_slam_torch._smoke import (card_line, load_fixture,
+                                      load_mapping_fixture, pipelined,
+                                      run_tracker, synthetic_matcher_inputs,
+                                      tracker_gaps)
     from dr_slam_torch.config import tum_freiburg3
     from dr_slam_torch.ops import match_cuda
     from dr_slam_torch.slam import map_ops
@@ -305,6 +318,47 @@ def main() -> None:
     print(f"[pipeline] {PIPELINE_FRAMES} frames in {dt:.2f} s = "
           f"{PIPELINE_FRAMES / dt:.2f} frames/s ({dt / PIPELINE_FRAMES * 1e3:.1f}"
           f" ms/frame) at 640x480 on {card}", flush=True)
+
+    # --- 4. tracker from an empty map ------------------------------------------
+    mdata = load_mapping_fixture()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    match_cuda.gated_top2_hamming.launches = 0
+    run = run_tracker(mdata, cfg, dev)
+    tracker_launches = match_cuda.gated_top2_hamming.launches
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    gaps, fails = tracker_gaps(run, mdata)
+    n = len(run.results)
+    for i, r in enumerate(run.results):
+        print(f"[tracker] frame {i}: {r.state.name} n_inliers {r.n_inliers} "
+              f"(jax {int(mdata['n_inliers'][i])}) n_matches {r.n_matches} "
+              f"(jax {int(mdata['n_matches'][i])}) launches "
+              f"{run.launches[i]}", flush=True)
+    for k, stages in enumerate(run.keyframes):
+        total = sum(ms for _, ms in stages)
+        what = "initialization" if k == 0 else "local-mapping pass"
+        print(f"[tracker] keyframe {k} ({what}, frame "
+              f"{gaps['kf_frames'][k]}): "
+              + ", ".join(f"{name} {ms:.2f} ms" for name, ms in stages)
+              + f"; total {total:.2f} ms device time (CUDA events) on {card}",
+              flush=True)
+    passes = [sum(ms for _, ms in st) for st in run.keyframes[1:]]
+    per_kf = sum(passes) / max(len(passes), 1)
+    print(f"[tracker] {n} frames from an empty map in {run.seconds:.2f} s = "
+          f"{n / run.seconds:.3f} frames/s (synchronised per frame), "
+          f"{len(passes)} local-mapping passes at {per_kf:.2f} ms per keyframe, "
+          f"peak device memory {peak_gib:.3f} GiB above what the earlier phases "
+          f"held, on {card}", flush=True)
+    print(f"[tracker] against the JAX tracker: {json.dumps(gaps)}; jax "
+          f"n_kfs {int(mdata['n_kfs'])} n_pts {int(mdata['n_pts'])} "
+          f"n_planes {int(mdata['n_planes'])} n_lines "
+          f"{int(mdata['n_lines'])}; matcher launches {tracker_launches}",
+          flush=True)
+    if run.launches != [0] + [2] * (n - 1) or tracker_launches != 2 * (n - 1):
+        fail(f"tracker: expected 2 matcher launches per tracked frame, got "
+             f"{run.launches}")
+    if fails:
+        fail("tracker disagrees with the JAX tracker: " + "; ".join(fails))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

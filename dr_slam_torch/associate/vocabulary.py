@@ -1,9 +1,11 @@
 """Bag-of-words vocabulary: descriptor -> word assignment as one matmul.
 
-Counterpart of the per-frame part of the JAX package's `associate/vocabulary.py`
-(the role of DBoW2's ORBVocabulary): a flat binary codebook of W words; a
-descriptor's word is the codeword at least Hamming distance (+/-1 dot
-product argmax, first index on ties).
+Counterpart of `word_ids` and `compute_bow` in the JAX package's
+`associate/vocabulary.py` (the role of DBoW2's ORBVocabulary): a flat binary
+codebook of W words; a descriptor's word is the codeword at least Hamming
+distance (+/-1 dot product argmax, first index on ties). The products are
+integers bounded by 256, so float32 gives them exactly, as the reference's
+bf16 codebook with f32 accumulation does.
 
 The codebook for W words is the shipped trained one when
 `data/vocab{W}.npz` or `data/vocab.npz` holds W words, tried in that order
@@ -62,3 +64,13 @@ def word_ids(desc: torch.Tensor, n_words: int = 4096) -> torch.Tensor:
     signs = bits_to_signs(unpack_bits(desc))
     dot = signs @ _codebook(n_words, desc.device).T
     return torch.argmax(dot, -1).to(torch.int32)
+
+
+def compute_bow(desc: torch.Tensor, valid: torch.Tensor,
+                n_words: int = 4096) -> torch.Tensor:
+    """(K, 8) packed descriptors, (K,) validity -> (W,) L1-normalised term
+    frequencies over the valid descriptors' words."""
+    word = word_ids(desc, n_words).to(torch.int64)
+    hist = torch.zeros(n_words, dtype=torch.float32, device=desc.device)
+    hist.index_add_(0, word, valid.to(torch.float32))
+    return hist / torch.clamp(torch.sum(hist), min=1e-6)

@@ -17,8 +17,12 @@ JAX package built) and reports, per stage of the frame and for the whole:
   intervals) and the device's idle share, all three from that one window
   (the tracing slows the host, so that window's frame is longer than the
   unprofiled one);
-- the matcher kernel's device time per frame, for each of its two CUDA
-  kernels.
+- the matcher kernel's device time per frame, for each of its CUDA
+  kernels;
+- `float64_gemm_ms_per_frame`: the device time per frame of the float64
+  GEMM kernels, by the function that launched them: the innermost of the
+  `PROBES` (functions inside a stage, labelled on their own) or stage
+  whose range holds the launching operator.
 
 Prints one JSON line (also written to --out, if given) after the card's name
 and power limit. Needs one CUDA device; there is no CPU fallback."""
@@ -30,6 +34,7 @@ import collections
 import functools
 import json
 import os
+import re
 import sys
 import time
 
@@ -56,6 +61,13 @@ STAGES = [
     ("dr_slam_torch.slam.map_ops", "update_point_stats"),
 ]
 
+# functions called inside a stage, given a profiler range of their own (not
+# timed apart: their wall time stays in their stage's)
+PROBES = [("dr_slam_torch.geometry.se3", "se3_left_jacobian_inv")]
+
+# cuBLAS / CUTLASS kernel names of a float64 GEMM or GEMV
+FLOAT64_GEMM = re.compile(r"d884gemm|dgemm|dgemv|gemv.*double")
+
 
 def instrument(mode: str, wall: dict):
     """Wrap every stage: "sync" times it on the host clock between two
@@ -65,20 +77,22 @@ def instrument(mode: str, wall: dict):
     from torch.profiler import record_function
 
     saved = []
-    for mod_name, attr in STAGES:
+    probes = PROBES if mode == "label" else []
+    for kind, (mod_name, attr) in ([("stage", x) for x in STAGES]
+                                   + [("probe", x) for x in probes]):
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, attr)
         saved.append((mod, attr, fn))
 
-        def wrapped(*a, _fn=fn, _name=attr, **kw):
+        def wrapped(*a, _fn=fn, _name=f"{kind}::{attr}", **kw):
             if mode == "label":
-                with record_function("stage::" + _name):
+                with record_function(_name):
                     return _fn(*a, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = _fn(*a, **kw)
             torch.cuda.synchronize()
-            wall[_name] += time.perf_counter() - t0
+            wall[_name.split("::")[1]] += time.perf_counter() - t0
             return out
 
         setattr(mod, attr, functools.wraps(fn)(wrapped))
@@ -152,16 +166,20 @@ def main() -> None:
     dev_us = collections.Counter()
     by_name = collections.Counter()
     matcher_us = collections.Counter()
+    f64_us = collections.Counter()
     n_ops = 0
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             # the stage ranges are mirrored onto the device timeline too
-            if not e.name.startswith("stage::"):
+            if not e.name.startswith(("stage::", "probe::")):
                 by_name[e.name[:60]] += e.time_range.elapsed_us()
             for part in ("tile_kernel", "merge_kernel"):
                 if part in e.name:
                     matcher_us[part] += e.time_range.elapsed_us()
             continue
+        for k in e.kernels:
+            if FLOAT64_GEMM.search(k.name):
+                f64_us[_owner(e)] += k.duration
         if e.name.startswith("stage::"):
             name = e.name[len("stage::"):]
             dev_us[name] += getattr(e, "device_time_total", 0.0)
@@ -185,6 +203,8 @@ def main() -> None:
         "matcher_kernels_device_ms_per_frame": {
             k: v / n_prof / 1e3 for k, v in matcher_us.items()},
         "stages": stages,
+        "float64_gemm_ms_per_frame": {
+            k: v / n_prof / 1e3 for k, v in f64_us.items()},
         "top_device_events_ms_per_frame": {
             k: v / n_prof / 1e3 for k, v in by_name.most_common(8)},
         "profiled_wall_ms_per_frame": profiled_ms,
@@ -218,6 +238,16 @@ def _aten_descendants(e):
             yield c
         else:
             stack.extend(c.cpu_children)
+
+
+def _owner(e) -> str:
+    """The innermost probe or stage range around CPU event `e`."""
+    p = e
+    while p is not None:
+        if p.name.startswith(("probe::", "stage::")):
+            return p.name
+        p = p.cpu_parent
+    return "outside every stage"
 
 
 def _top_level_aten(e) -> bool:

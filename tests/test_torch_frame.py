@@ -22,52 +22,29 @@ reasons:
 - poses after the 4 x 10 Gauss-Newton solve 1e-4 (the iteration contracts,
   so per-step rounding does not grow)."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dr_slam_tpu.config import (CameraConfig, LineConfig, MapConfig, ORBConfig,
-                                SlamConfig)
 from dr_slam_tpu.frontend import frame as jframe
 from dr_slam_tpu.geometry import se3 as jse3
 from dr_slam_tpu.io import synthetic
 from dr_slam_tpu.manhattan import tracker as jman
 from dr_slam_tpu.optimize import pose_opt as jpose
 from dr_slam_tpu.optimize import residuals as jres
-from dr_slam_torch import config as tconfig
 from dr_slam_torch.frontend import frame as tframe
 from dr_slam_torch.manhattan import tracker as tman
 from dr_slam_torch.optimize import pose_opt as tpose
 from dr_slam_torch.optimize import residuals as tres
 
+from torch_parity import small_cfg, to_port
+
 torch.set_num_threads(2)
 
 K4 = (267.7, 269.6, 160.0, 120.0)
 BF = 20.0
-
-
-def small_cfg() -> SlamConfig:
-    """tests/test_tracking_e2e.py's configuration."""
-    return SlamConfig(
-        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
-                            width=320, height=240, bf=20.0),
-        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
-        line=LineConfig(max_lines=32),
-        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
-                      max_keyframes=32, vocab_words=512))
-
-
-def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
-    fields = {}
-    for f in dataclasses.fields(cfg):
-        v = getattr(cfg, f.name)
-        fields[f.name] = (getattr(tconfig, type(v).__name__)(**dataclasses.asdict(v))
-                          if dataclasses.is_dataclass(v) else v)
-    return tconfig.SlamConfig(**fields)
 
 
 def close(port, ref, atol, rtol=0.0, err_msg=""):

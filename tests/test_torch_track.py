@@ -12,46 +12,23 @@ must match exactly. Poses agree within 1e-5 and the float entries of the
 per-frame bundle within 1e-4: the same float32 formulas with sums taken in
 another order, through two 4 x 10 Gauss-Newton solves that contract."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dr_slam_tpu.config import (CameraConfig, LineConfig, MapConfig, ORBConfig,
-                                SlamConfig)
 from dr_slam_tpu.io import map_io as jio
 from dr_slam_tpu.io import synthetic
 from dr_slam_tpu.slam.track_step import extract_and_track as jax_track
-from dr_slam_torch import config as tconfig
 from dr_slam_torch.io import map_io as tio
 from dr_slam_torch.slam.track_step import extract_and_track as port_track
+
+from torch_parity import small_cfg, to_port
 
 torch.set_num_threads(2)
 
 N_MAP = 6      # frames the JAX System tracks to build the map
 N_CMP = 3      # frames both packages then track
-
-
-def small_cfg() -> SlamConfig:
-    """tests/test_tracking_e2e.py's configuration."""
-    return SlamConfig(
-        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
-                            width=320, height=240, bf=20.0),
-        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
-        line=LineConfig(max_lines=32),
-        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
-                      max_keyframes=32, vocab_words=512))
-
-
-def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
-    fields = {}
-    for f in dataclasses.fields(cfg):
-        v = getattr(cfg, f.name)
-        fields[f.name] = (getattr(tconfig, type(v).__name__)(**dataclasses.asdict(v))
-                          if dataclasses.is_dataclass(v) else v)
-    return tconfig.SlamConfig(**fields)
 
 
 @pytest.fixture(scope="module")

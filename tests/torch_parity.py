@@ -1,0 +1,81 @@
+"""Helpers shared by the parity tests of the PyTorch port against the JAX
+package: the small configuration of tests/test_tracking_e2e.py in both
+packages, and the carriers of frame features and map states from JAX into
+the port."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dr_slam_tpu.config import (CameraConfig, LineConfig, MapConfig, ORBConfig,
+                                SlamConfig)
+from dr_slam_torch import config as tconfig
+from dr_slam_torch.frontend.frame import FrameFeatures
+from dr_slam_torch.io.map_io import from_jax_state
+from dr_slam_torch.ops.lines import LineFeatures
+from dr_slam_torch.ops.orb import Keypoints
+from dr_slam_torch.ops.planes import PlaneSegmentation
+
+
+def small_cfg(deferred: bool = True) -> SlamConfig:
+    """tests/test_tracking_e2e.py's configuration (320x240, 512 keypoints,
+    4096 map points, 32 keyframes, 512 vocabulary words)."""
+    cfg = SlamConfig(
+        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
+                            width=320, height=240, bf=20.0),
+        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
+        line=LineConfig(max_lines=32),
+        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
+                      max_keyframes=32, vocab_words=512))
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, deferred_readback=deferred))
+
+
+def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
+    fields = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        fields[f.name] = (getattr(tconfig, type(v).__name__)(**dataclasses.asdict(v))
+                          if dataclasses.is_dataclass(v) else v)
+    return tconfig.SlamConfig(**fields)
+
+
+def tensor(x) -> torch.Tensor:
+    """A JAX or numpy array as a CPU tensor; uint32 bits become int32."""
+    a = np.array(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a)
+
+
+def feats_to_port(f) -> FrameFeatures:
+    """JAX FrameFeatures -> the port's, on the CPU, bit for bit."""
+    def conv(cls, nt):
+        return cls(**{k: tensor(v) for k, v in nt._asdict().items()})
+    return FrameFeatures(
+        kp=conv(Keypoints, f.kp), kp_depth=tensor(f.kp_depth),
+        kp_ur=tensor(f.kp_ur), kp_xyz=tensor(f.kp_xyz),
+        normals=tensor(f.normals), normals_valid=tensor(f.normals_valid),
+        planes=conv(PlaneSegmentation, f.planes),
+        lines=conv(LineFeatures, f.lines))
+
+
+def state_to_port(st):
+    return from_jax_state({k: np.asarray(v) for k, v in st._asdict().items()},
+                          "cpu")
+
+
+def assert_states_match(jst, tst, atol: float, fields=None) -> None:
+    """Integer and bool fields exactly equal, float fields within atol."""
+    for f in fields or jst._fields:
+        a = np.asarray(getattr(jst, f))
+        b = getattr(tst, f).numpy()
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=f)
+        else:
+            np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=f)
