@@ -35,6 +35,28 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (`tracker_gaps`), and the matcher launch exactly twice per tracked
    frame. Prints each keyframe's stage times (CUDA events around each
    `kf.*` stage), the pass's frames/s and its peak device memory.
+5. system: `System(cfg, device="cuda")` loads the map of
+   dr_slam_torch/data/reloc_corridor.npz (made by
+   scripts/make_torch_reloc_fixture.py; 640x480, the map of frames 0-23)
+   and so starts LOST. Scenario A: localization mode over frames 18-29;
+   scenario B: loop closing on, frames 24, 25, a black frame, 26-29. States
+   and reference keyframes must equal the JAX System's, T_cw and the counts
+   stay within the bounds of `system_gaps`, the map is unchanged in A, and
+   every relocalized frame launches the matcher. The kernel is then held
+   against its plain version on relocalization's inputs: the full-map
+   verify, and the wide search without the scale gate (`kp_octave=None`),
+   called on the last relocalized frame's features if no candidate needed
+   it. Prints the wall ms of each frame, synchronised.
+6. loop: `LoopCloser.process` on the call that closed the loop in the JAX
+   package's loop scenario (dr_slam_torch/data/loop_small.npz, made by
+   scripts/make_torch_loop_fixture.py; that scenario's 320x240 config),
+   held to the bounds of `loop_gaps`, then the global BA it dispatches,
+   resolved blocking. Prints loop.process and its pose-graph, re-anchoring
+   and seam-fuse stages between CUDA events, the BA's host dispatch time and
+   its device time on its own stream, and the peak device memory.
+
+The kernel table's `launches` adds the main path's, the tracker's, the two
+System scenarios' and the loop phase's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -44,6 +66,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import time
 
 
@@ -163,6 +186,186 @@ def _bound(args) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT8_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _stream_ms(torch, dev, fn):
+    """(fn's result, ms between two CUDA events around it after a
+    synchronise; on the CPU, wall ms)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def system_phase(dev, cfg, card: str) -> tuple[dict, float]:
+    """Phase 5: scenarios A and B of the reloc fixture through `System`, and
+    the kernel against its plain version on relocalization's inputs. ->
+    (matcher launches per scenario, the kernel's max abs error)."""
+    import numpy as np
+    import torch
+
+    from dr_slam_torch._smoke import (RELOC_FIXTURE, load_npz, run_system,
+                                      save_fixture_map, system_gaps)
+    from dr_slam_torch.frontend.frame import extract_frame
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.slam import map_ops
+
+    data = load_npz(RELOC_FIXTURE)
+    first = int(data["first_frame"])
+    launches, captured, runs = {}, [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        map_path = os.path.join(tmp, "map.npz")
+        save_fixture_map(data, map_path)
+        for name in ("a", "b"):
+            frames = [int(f) for f in data[f"{name}__frame"]]
+            match_cuda.gated_top2_hamming.launches = 0
+            run = run_system(data, name, cfg, dev, map_path, capture=True)
+            launches[name] = match_cuda.gated_top2_hamming.launches
+            runs[name] = run
+            gaps, fails = system_gaps(run, data, name)
+            what = ("localization mode" if name == "a"
+                    else "loop closing on, a black frame")
+            for i, r in enumerate(run.results):
+                print(f"[system {name}] frame {frames[i]}: {r.state.name} "
+                      f"ref_kf {run.ref_kf[i]} (jax "
+                      f"{int(data[f'{name}__ref_kf'][i])}) n_inliers "
+                      f"{r.n_inliers} (jax {int(data[f'{name}__n_inliers'][i])})"
+                      f" launches {run.launches[i]} {run.ms[i]:.1f} ms"
+                      + (" relocalized" if run.reloc[i] else ""), flush=True)
+            reloc_ms = [ms for ms, rel in zip(run.ms, run.reloc) if rel]
+            print(f"[system {name}] {what}: {json.dumps(gaps)}; relocalized "
+                  "frames at " + ", ".join(f"{ms:.1f}" for ms in reloc_ms)
+                  + f" ms (synchronised, wall) on {card}; matcher launches "
+                  f"{launches[name]}", flush=True)
+            if not reloc_ms:
+                fail(f"system {name}: no frame relocalized")
+            # (the count is the kernel's: on the CPU the plain version runs)
+            if dev.type == "cuda" and any(
+                    rel and n < 1 for rel, n in zip(run.reloc, run.launches)):
+                fail(f"system {name}: a relocalized frame did not launch the "
+                     f"matcher: {run.launches}")
+            if fails:
+                fail(f"system {name} disagrees with the JAX System: "
+                     + "; ".join(fails))
+            captured += run.matcher_calls
+    # the kernel on relocalization's own inputs: the full-map verify, and
+    # the wide search without the scale gate (kp_octave=None); where no
+    # candidate needed the wide search, it is called here on the last
+    # relocalized frame's features, from the pose it relocalized to
+    checks = [("verify", next(a for _, wide, a in reversed(captured)
+                              if not wide))]
+    wide = [a for _, w, a in captured if w]
+    if not wide:
+        run = runs["b"]
+        i = max(k for k, rel in enumerate(run.reloc) if rel)
+        frame = int(data["b__frame"][i])
+        gray = torch.from_numpy(data["gray"][frame - first]
+                                .astype(np.float32)).to(dev)
+        depth = torch.from_numpy((data["depth"][frame - first]
+                                  / cfg.camera.depth_factor)
+                                 .astype(np.float32)).to(dev)
+        feats = extract_frame(gray, depth, cfg, dev)
+        T = torch.from_numpy(np.asarray(run.results[i].T_cw,
+                                        np.float32)).to(dev)
+        kernel = map_ops.gated_top2_hamming
+
+        def keep(*a):
+            wide.append(tuple(x.clone() for x in a))
+            return kernel(*a)
+        map_ops.gated_top2_hamming = keep
+        try:
+            map_ops.match_points_projection(
+                run.system.tracker.map_state, feats.kp.uv, feats.kp.desc,
+                feats.kp.valid, T, cfg.camera.K4, radius=10.0,
+                max_hamming=map_ops.TH_HIGH, width=cfg.camera.width,
+                height=cfg.camera.height, kp_angle=feats.kp.angle)
+        finally:
+            map_ops.gated_top2_hamming = kernel
+        print(f"[system] no candidate took the wide search; it was called "
+              f"on frame {frame}'s features", flush=True)
+    checks.append(("wide, kp_octave=None", wide[-1]))
+    err = 0.0
+    for name, a in checks:
+        out_k = match_cuda.gated_top2_hamming(*a)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out_r = match_cuda.gated_top2_hamming_ref(*a)
+        mism, e = _compare(out_k, out_r, torch)
+        print(f"[kernel] relocalization {name}: K={a[0].shape[0]} "
+              f"NC={a[4].shape[0]} valid={int(a[9].sum())} scale-gated "
+              f"{int((a[8] & a[9]).sum())} mismatches={mism} "
+              f"max_abs_err={e}", flush=True)
+        if any(mism.values()):
+            fail(f"kernel disagrees with its plain version ({name}): {mism}")
+        err = max(err, e)
+    return launches, err
+
+
+def loop_phase(dev, card: str) -> int:
+    """Phase 6: `LoopCloser.process` on the loop fixture's firing call and
+    the global BA it dispatches, against the JAX run. -> matcher launches."""
+    import numpy as np
+    import torch
+
+    from dr_slam_torch._smoke import (LOOP_FIXTURE, LOOP_GBA_TOL, load_npz,
+                                      loop_call, loop_closer, loop_gaps,
+                                      loop_small_cfg)
+    from dr_slam_torch.io.map_io import from_jax_state
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.slam.loop_closing import LoopCloser
+
+    cuda = dev.type == "cuda"
+    data = load_npz(LOOP_FIXTURE)
+    call = loop_call(data, "fire")
+    st = from_jax_state(call["state"], dev)
+    lc = loop_closer(LoopCloser, loop_small_cfg(), call, device=dev)
+    lc.stage_events = []
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    match_cuda.gated_top2_hamming.launches = 0
+    t0 = time.perf_counter()
+    (new, fired), ms = _stream_ms(
+        torch, dev, lambda: lc.process(st, call["cur_kf"], call["odom"]))
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = match_cuda.gated_top2_hamming.launches
+    gaps, fails = loop_gaps(data, call, lc, st, new, fired)
+    stages = ", ".join(f"{n} {a.elapsed_time(b):.2f} ms"
+                       for n, a, b in lc.stage_events)
+    print(f"[loop] loop.process {ms:.2f} ms between CUDA events ({wall:.1f} "
+          f"ms wall), of which {stages or 'stages not timed on the CPU'}, on "
+          f"{card}; matcher launches {launches}", flush=True)
+    print(f"[loop] against the JAX correction: {json.dumps(gaps)}", flush=True)
+    if fails:
+        fail("loop closing disagrees with the JAX run: " + "; ".join(fails))
+    lc.dispatch_gba(new, guard_gen=0)
+    merged = lc.resolve_gba(new, guard_gen=0, block=True)
+    gba = "not measured on the CPU"
+    if cuda:
+        torch.cuda.synchronize()
+        gba = (f"{lc.gba_events[0].elapsed_time(lc.gba_events[1]):.1f} ms "
+               "between CUDA events on its stream")
+    gba_gaps = {f: float(np.abs(getattr(merged, f).cpu().numpy()
+                                - data[f"gba__{f}"]).max())
+                for f in LOOP_GBA_TOL}
+    peak = (f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.3f} GiB"
+            if cuda else "not measured")
+    print(f"[loop] global BA: host dispatch {lc.dispatch_seconds * 1e3:.1f} "
+          f"ms, device {gba}; against the JAX one {json.dumps(gba_gaps)}; "
+          f"peak device memory {peak} above what the earlier phases held, "
+          f"on {card}", flush=True)
+    bad = [f for f, tol in LOOP_GBA_TOL.items() if gba_gaps[f] > tol]
+    if bad:
+        fail(f"global BA disagrees with the JAX one in {bad}")
+    return launches
 
 
 def main() -> None:
@@ -359,13 +562,25 @@ def main() -> None:
              f"{run.launches}")
     if fails:
         fail("tracker disagrees with the JAX tracker: " + "; ".join(fails))
+
+    # --- 5. System: relocalization into a saved map ---------------------------
+    system_launches, err5 = system_phase(dev, cfg, card)
+    err = max(err, err5)
+    # --- 6. loop closing on the loop fixture -------------------------------------
+    loop_launches = loop_phase(dev, card)
+    print(f"[kernel] launches by path: main {launches}, tracker "
+          f"{tracker_launches}, system a {system_launches['a']}, system b "
+          f"{system_launches['b']}, loop {loop_launches} (the pipelined "
+          f"timing loop's {2 * PIPELINE_FRAMES} not counted)", flush=True)
+    total_launches = (launches + tracker_launches
+                      + sum(system_launches.values()) + loop_launches)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "gated_top2_hamming", "route": "cuda",
         "source": "dr_slam_torch/csrc/gated_top2_hamming.cu",
         "replaces": REPLACES,
-        "launches": launches, "max_abs_err": err, "ms": ms,
+        "launches": total_launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}))
     print(card)

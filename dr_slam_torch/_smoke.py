@@ -1,8 +1,9 @@
 """Shared pieces of the port's GPU smoke run (`chip_smoke.py`), its frame
 profiler (`scripts/profile_torch_frame.py`) and its CUDA and full-size
 tests: the card's name line, the smoke fixture, the pipelined frame loop,
-matcher inputs at the main path's shapes, and the mapping fixture with the
-Tracker run over it."""
+matcher inputs at the main path's shapes, the mapping fixture with the
+Tracker run over it, the reloc fixture with the System run over it, and the
+loop fixture with the bounds of a loop correction."""
 
 from __future__ import annotations
 
@@ -237,4 +238,257 @@ def tracker_gaps(run: TrackerRun, data: dict) -> tuple[dict, list]:
     ref = int(data["n_pts"])
     if abs(gaps["n_pts"] - ref) > TRACKER_COUNT_TOL * ref:
         fails.append(f"n_pts {gaps['n_pts']}, JAX {ref}")
+    return gaps, fails
+
+
+# --- the System: relocalization into a saved map, and loop closing ---------
+
+RELOC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "reloc_corridor.npz")
+LOOP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "loop_small.npz")
+
+
+def load_npz(path: str) -> dict:
+    with np.load(path) as fx:
+        return {k: fx[k] for k in fx.files}
+
+
+def loop_small_cfg():
+    """The configuration of the JAX package's loop scenario
+    (tests/test_loop_closure.py), which the loop fixture was made at:
+    320x240, 512 keypoints, 4096 map points, 32 keyframes, 512 words,
+    keyframe culling off, 15 / 6 px match windows, loop consistency 1."""
+    import dataclasses
+
+    from dr_slam_torch.config import (CameraConfig, LineConfig, MapConfig,
+                                      ORBConfig, SlamConfig)
+    cfg = SlamConfig(
+        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
+                            width=320, height=240, bf=20.0),
+        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
+        line=LineConfig(max_lines=32),
+        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
+                      max_keyframes=32, vocab_words=512))
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, run_kf_culling=False, motion_search_radius=15.0,
+        local_search_radius=6.0, loop_consistency=1))
+
+
+def loop_call(data: dict, call: str) -> dict:
+    """The inputs of one watched `LoopCloser.process` call of the loop
+    fixture (`call` "fire" or "prev"), as numpy arrays and Python values:
+    the map's fields, the current keyframe, the odometry table and the
+    closer's state before the call."""
+    p = f"{call}__"
+    m = p + "map__"
+    return dict(
+        state={k[len(m):]: v for k, v in data.items() if k.startswith(m)},
+        cur_kf=int(data[p + "cur_kf"]),
+        odom={int(s): (int(q), T) for s, q, T in zip(
+            data[p + "odom_seq"], data[p + "odom_prev"], data[p + "odom_T"])},
+        consistency={int(k): int(v) for k, v in data[p + "in__consistency"]},
+        last_fire_seq=int(data[p + "in__last_fire_seq"]),
+        accepted_loops=[(int(a), int(b), T) for (a, b), T in zip(
+            data[p + "in__loops_seq"], data[p + "in__loops_T"])])
+
+
+# Bounds of the port's loop correction and global BA against the JAX
+# outputs in the loop fixture (tests/test_torch_loop_closing.py). On the CPU
+# the correction agrees within 1e-6 and the global BA within 6.3e-4 on poses
+# and 8.6e-3 on one point (4 x 30 float32 CG iterations over the whole map,
+# summed in another order); the headroom is for the card's summation order.
+LOOP_CORR_TOL = {"kf_pose": 1e-3, "pt_pos": 2e-3, "pl_coef": 2e-3,
+                 "ln_ep": 2e-3}
+LOOP_GBA_TOL = {"kf_pose": 5e-3, "pt_pos": 5e-2, "pl_coef": 5e-3,
+                "ln_ep": 1e-2}
+
+
+def loop_gaps(data: dict, call: dict, lc, st: MapState, new: MapState,
+              fired: bool) -> tuple[dict, list]:
+    """A firing `LoopCloser.process` against the JAX run's: the flag, the
+    accepted loop (sequences exact, T_rel within 1e-3), the surviving
+    points and observation table exact, the corrected map within
+    LOOP_CORR_TOL. -> (gaps, failed checks)."""
+    def host(x):
+        return x.detach().cpu().numpy()
+    fails = []
+    loops = [(a, b) for a, b, _ in lc._accepted_loops]
+    want = [tuple(int(v) for v in x) for x in data["fire__after__loops_seq"]]
+    gaps = {f: float(np.abs(host(getattr(new, f))
+                            - data[f"fire__out__{f}"]).max())
+            for f in LOOP_CORR_TOL}
+    gaps["fused"] = int(st.pt_valid.sum()) - int(new.pt_valid.sum())
+    gaps["loops"] = loops
+    if not fired:
+        return gaps, ["the loop did not close"]
+    gaps["T_rel"] = float(np.abs(lc._accepted_loops[-1][2]
+                                 - data["fire__after__loops_T"][-1]).max())
+    if loops != want:
+        fails.append(f"accepted loops {loops}, JAX {want}")
+    if gaps["T_rel"] > 1e-3:
+        fails.append(f"|dT_rel| {gaps['T_rel']:.2e} > 1e-3")
+    for f in ("pt_valid", "kf_mp"):
+        if not np.array_equal(host(getattr(new, f)), data[f"fire__out__{f}"]):
+            fails.append(f"{f} differs from the JAX correction's")
+    for f, tol in LOOP_CORR_TOL.items():
+        if gaps[f] > tol:
+            fails.append(f"{f} off by {gaps[f]:.2e} > {tol}")
+    return gaps, fails
+
+
+def loop_closer(cls, cfg, call: dict, **kw):
+    """A `cls` (either package's LoopCloser) set up as the System's was
+    before `call`."""
+    lc = cls(cfg, consistency_needed=cfg.tracking.loop_consistency, **kw)
+    lc._consistency = dict(call["consistency"])
+    lc._last_fire_seq = call["last_fire_seq"]
+    lc._accepted_loops = list(call["accepted_loops"])
+    return lc
+
+
+def save_fixture_map(data: dict, path: str, prefix: str = "map__") -> None:
+    """Write the fixture's map (the "<prefix><field>" arrays) as a map file
+    that either package's `load_map` reads."""
+    np.savez_compressed(path, **{k[len(prefix):]: v for k, v in data.items()
+                                 if k.startswith(prefix)})
+
+
+def map_fingerprint(st: MapState) -> dict:
+    """Sums over the fields tracking could change (tests/
+    test_localization_mode.py's fingerprint): equal before and after
+    means the map stayed frozen."""
+    return {"n_kfs": int(st.n_kfs), "pt_valid": int(st.pt_valid.sum()),
+            "pt_pos": float(st.pt_pos.double().sum()),
+            "pt_found": int(st.pt_found.sum()),
+            "pt_visible": int(st.pt_visible.sum()),
+            "kf_pose": float(st.kf_pose.double().sum()),
+            "pl_valid": int(st.pl_valid.sum())}
+
+
+class SystemRun(NamedTuple):
+    results: list        # TrackingResult per frame
+    system: object       # the System, flushed
+    ref_kf: list         # the tracker's reference keyframe after each frame
+    launches: list       # matcher launches per frame
+    ms: list             # wall ms per frame (synchronised per frame)
+    reloc: list          # per frame: _relocalize ran (bool)
+    fingerprints: tuple  # the map's fingerprint after load and at the end
+    matcher_calls: list  # [(frame, wide: no scale gate, args)] in reloc
+
+
+def run_system(data: dict, run: str, cfg, device, map_path: str,
+               capture: bool = False) -> SystemRun:
+    """Scenario `run` ("a" or "b") of the reloc fixture through the port's
+    `System`: a fresh System loads the fixture's map from `map_path`
+    (written by `save_fixture_map`) and takes the run's frames as the JAX
+    System did (gray as float32, depth as d16 / depth_factor in float32, a
+    black frame for -1), synchronised after each frame. Run "a" is
+    localization mode with loop closing off, run "b" has loop closing on.
+    With `capture`, the matcher's inputs inside relocalization are kept."""
+    from dr_slam_torch.ops.match_cuda import gated_top2_hamming
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.system import System
+
+    dev = torch.device(device)
+    sysm = System(cfg, enable_loop_closing=run == "b", device=dev)
+    sysm.load_map(map_path)
+    if run == "a":
+        sysm.activate_localization_mode()
+    tr = sysm.tracker
+    fp0 = map_fingerprint(tr.map_state)
+    now = {"frame": None, "reloc": False, "inside": False}
+    calls = []
+    kernel, reloc = map_ops.gated_top2_hamming, tr._relocalize
+
+    def watched_reloc(feats, ts):
+        now["reloc"] = now["inside"] = True
+        try:
+            return reloc(feats, ts)
+        finally:
+            now["inside"] = False
+
+    def watched_kernel(*a):
+        if capture and now["inside"]:
+            calls.append((now["frame"], not bool(a[8].any()),
+                          tuple(x.clone() for x in a)))
+        return kernel(*a)
+
+    tr._relocalize = watched_reloc
+    map_ops.gated_top2_hamming = watched_kernel
+    results, ref_kf, launches, ms, relocs = [], [], [], [], []
+    order = [int(i) for i in data[f"{run}__frame"]]
+    first = int(data["first_frame"])
+    try:
+        for n, frame in enumerate(order):
+            if frame < 0:
+                g = np.zeros_like(data["gray"][0])
+                d = np.zeros_like(data["depth"][0])
+                ts = (order[n - 1] + 0.5) / 30.0
+            else:
+                g = data["gray"][frame - first]
+                d = data["depth"][frame - first]
+                ts = frame / 30.0
+            gray = g.astype(np.float32)
+            depth = (d / cfg.camera.depth_factor).astype(np.float32)
+            now.update(frame=frame, reloc=False)
+            before = gated_top2_hamming.launches
+            t0 = time.perf_counter()
+            results.append(sysm.track_rgbd(gray, depth, ts))
+            sysm.block_until_ready()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            relocs.append(now["reloc"])
+            launches.append(gated_top2_hamming.launches - before)
+            ref_kf.append(tr.ref_kf)
+        tr.flush()
+        sysm.block_until_ready()
+    finally:
+        map_ops.gated_top2_hamming = kernel
+        tr._relocalize = reloc
+    fp1 = map_fingerprint(tr.map_state)
+    return SystemRun(results, sysm, ref_kf, launches, ms, relocs, (fp0, fp1),
+                     calls)
+
+
+def system_gaps(run: SystemRun, data: dict, prefix: str) -> tuple[dict, list]:
+    """A System run's distances from the JAX outputs of the same scenario
+    (`prefix` "a" or "b"), and the failed checks: states and reference
+    keyframes exact, T_cw within TRACKER_T_TOL, counts within
+    TRACKER_COUNT_TOL, the keyframe count exact; in scenario "a" the map
+    unchanged."""
+    res = run.results
+    st = run.system.tracker.map_state
+
+    def host(T):
+        return T.cpu().numpy() if isinstance(T, torch.Tensor) \
+            else np.asarray(T)
+    dT = [float(np.abs(host(r.T_cw) - data[f"{prefix}__T_cw"][i]).max())
+          for i, r in enumerate(res)]
+    gaps = dict(max_dT=max(dT), n_kfs=int(st.n_kfs), n_pts=int(st.n_pts),
+                n_planes=int(st.pl_valid.sum()),
+                n_lines=int(st.ln_valid.sum()),
+                reloc_frames=[int(data[f"{prefix}__frame"][i])
+                              for i, r in enumerate(run.reloc) if r])
+    fails = []
+    states = [r.state.value for r in res]
+    if states != data[f"{prefix}__state"].tolist():
+        fails.append(f"states {states}, JAX {data[f'{prefix}__state'].tolist()}")
+    if run.ref_kf != data[f"{prefix}__ref_kf"].tolist():
+        fails.append(f"ref_kf {run.ref_kf}, JAX "
+                     f"{data[f'{prefix}__ref_kf'].tolist()}")
+    if gaps["max_dT"] > TRACKER_T_TOL:
+        fails.append(f"|dT_cw| {gaps['max_dT']:.2e} > {TRACKER_T_TOL}")
+    for i, r in enumerate(res):
+        for name, got in (("n_inliers", r.n_inliers), ("n_matches", r.n_matches)):
+            ref = int(data[f"{prefix}__{name}"][i])
+            if abs(got - ref) > TRACKER_COUNT_TOL * max(ref, 1):
+                fails.append(f"frame {i}: {name} {got}, JAX {ref}")
+    if gaps["n_kfs"] != int(data[f"{prefix}__n_kfs"]):
+        fails.append(f"n_kfs {gaps['n_kfs']}, JAX "
+                     f"{int(data[f'{prefix}__n_kfs'])}")
+    ref = int(data[f"{prefix}__n_pts"])
+    if abs(gaps["n_pts"] - ref) > TRACKER_COUNT_TOL * ref:
+        fails.append(f"n_pts {gaps['n_pts']}, JAX {ref}")
+    if prefix == "a" and run.fingerprints[0] != run.fingerprints[1]:
+        fails.append("localization mode changed the map")
     return gaps, fails

@@ -1,16 +1,19 @@
-"""Bag-of-words vocabulary: descriptor -> word assignment as one matmul.
+"""Bag-of-words vocabulary: descriptor -> word assignment as one matmul, and
+BoW scoring against every keyframe.
 
-Counterpart of `word_ids` and `compute_bow` in the JAX package's
-`associate/vocabulary.py` (the role of DBoW2's ORBVocabulary): a flat binary
+Counterpart of the JAX package's `associate/vocabulary.py` (the role of
+DBoW2's ORBVocabulary and the KeyFrameDatabase's scoring): a flat binary
 codebook of W words; a descriptor's word is the codeword at least Hamming
 distance (+/-1 dot product argmax, first index on ties). The products are
 integers bounded by 256, so float32 gives them exactly, as the reference's
-bf16 codebook with f32 accumulation does.
+bf16 codebook with f32 accumulation does. `bow_scores` is DBoW2's L1 score,
+1 - 0.5 |v1 - v2|_1, against all keyframes at once.
 
-The codebook for W words is the shipped trained one when
+The codebook for W words is the one registered with `set_vocabulary` (or
+`load_vocabulary`) for W; else the shipped trained one when
 `data/vocab{W}.npz` or `data/vocab.npz` holds W words, tried in that order
-as the JAX `System` registers them (the keyframes' cached word ids in a map
-were assigned with it), else the seeded random codebook."""
+as the `System`s of both packages register them (the keyframes' cached word
+ids in a map were assigned with it); else the seeded random codebook."""
 
 from __future__ import annotations
 
@@ -40,9 +43,30 @@ def words_to_signs(packed_words: np.ndarray) -> np.ndarray:
     return bits.astype(np.float32) * 2.0 - 1.0
 
 
+# Registered trained codebooks by word count (set_vocabulary).
+_trained_signs: dict = {}
+
+
+def set_vocabulary(packed_words: np.ndarray) -> None:
+    """Register a trained codebook: (W, 8) uint32 packed 256-bit words. It
+    replaces whatever codebook W words had, cached copies included."""
+    _trained_signs[packed_words.shape[0]] = words_to_signs(packed_words)
+    get_codebook_signs.cache_clear()
+    _codebook.cache_clear()
+
+
+def load_vocabulary(path: str) -> None:
+    """Load and register a codebook saved as an .npz with a "words" array."""
+    with np.load(path) as data:
+        set_vocabulary(data["words"])
+
+
 @functools.lru_cache(maxsize=4)
 def get_codebook_signs(n_words: int) -> np.ndarray:
-    """(W, 256) +/-1 codebook for W words (trained if shipped, else random)."""
+    """(W, 256) +/-1 codebook for W words: registered, else shipped, else
+    random."""
+    if n_words in _trained_signs:
+        return _trained_signs[n_words]
     for name in (f"vocab{n_words}.npz", "vocab.npz"):
         path = os.path.join(_DATA_DIR, name)
         if not os.path.exists(path):
@@ -74,3 +98,11 @@ def compute_bow(desc: torch.Tensor, valid: torch.Tensor,
     hist = torch.zeros(n_words, dtype=torch.float32, device=desc.device)
     hist.index_add_(0, word, valid.to(torch.float32))
     return hist / torch.clamp(torch.sum(hist), min=1e-6)
+
+
+def bow_scores(bow: torch.Tensor, kf_bows: torch.Tensor,
+               kf_valid: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 score of `bow` (W,) against all keyframes (NK, W) -> (NK,),
+    -1 for dead slots."""
+    s = 1.0 - 0.5 * torch.sum(torch.abs(bow[None] - kf_bows), -1)
+    return torch.where(kf_valid, s, -1.0)

@@ -160,6 +160,50 @@ def backproject(K4, uv, depth):
     return torch.stack([x, y, depth], -1)
 
 
+def quat_to_rot(q):
+    """Quaternion (...,4) as (x,y,z,w), the TUM trajectory order ->
+    (...,3,3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def rot_to_quat_unnormalized(R):
+    """(...,3,3) -> (...,4) as (x,y,z,w): of Shepperd's four constructions,
+    the one with the largest pivot, before the final normalisation (the
+    caller normalises, as the trajectory saver does to match the JAX
+    package's rounding)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw0 = torch.sqrt(torch.clamp(1.0 + tr, min=_EPS)) / 2.0
+    c0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], -1)
+    qx1 = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=_EPS)) / 2.0
+    c1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], -1)
+    qy2 = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=_EPS)) / 2.0
+    c2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], -1)
+    qz3 = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=_EPS)) / 2.0
+    c3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], -1)
+    pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], -1)
+    idx = torch.argmax(pivots, -1)
+    cands = torch.stack([c0, c1, c2, c3], -2)
+    return torch.gather(cands, -2, idx[..., None, None].expand(
+        idx.shape + (1, 4)))[..., 0, :]
+
+
 def orthonormalize_rotation(M, n_iters: int = 6):
     """Project a near-rotation onto SO(3) with the fixed-iteration Newton
     polar iteration X <- (X + X^-T)/2 (same as the reference; no SVD)."""

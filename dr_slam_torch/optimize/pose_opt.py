@@ -48,6 +48,29 @@ class PoseObservations(NamedTuple):
     ver_obs: torch.Tensor
     ver_valid: torch.Tensor
 
+    @staticmethod
+    def empty(n_pt: int, n_ln: int, n_pl: int, n_st: int,
+              device=None) -> "PoseObservations":
+        """An observation set with every edge invalid (planes held at a
+        unit normal, so the structural terms stay finite)."""
+        def z(*shape):
+            return torch.zeros(shape, device=device)
+
+        def no(n):
+            return torch.zeros(n, dtype=torch.bool, device=device)
+
+        def plane(n):
+            return z(n, 4).index_fill(1, torch.tensor([2], device=device),
+                                      1.0)
+        return PoseObservations(
+            pt_world=z(n_pt, 3), pt_obs=z(n_pt, 3),
+            pt_inv_sigma2=torch.ones(n_pt, device=device), pt_valid=no(n_pt),
+            ln_world=z(n_ln, 6), ln_obs=z(n_ln, 3),
+            ln_inv_sigma2=torch.ones(n_ln, device=device), ln_valid=no(n_ln),
+            pl_world=plane(n_pl), pl_obs=plane(n_pl), pl_valid=no(n_pl),
+            par_world=plane(n_st), par_obs=plane(n_st), par_valid=no(n_st),
+            ver_world=plane(n_st), ver_obs=plane(n_st), ver_valid=no(n_st))
+
 
 class PoseOptResult(NamedTuple):
     T_cw: torch.Tensor

@@ -12,8 +12,10 @@ resolves its LOST / keyframe decision at the start of the next frame, from
 a copy of the frame's scalar bundle into pinned host memory that was
 started without waiting; on the CPU the copy is done at once. Per frame the
 host reads back that one bundle, and per keyframe one packed bundle
-(`_kf_scalar_bundle`). Relocalization is not ported yet: a LOST tracker
-raises `NotImplementedError` on the next frame.
+(`_kf_scalar_bundle`). A LOST tracker relocalizes on its next frame
+(`_relocalize`: BoW candidates, Horn- or PnP-RANSAC, pose optimisation, a
+full-map projection check; the matcher runs there too), and a young map
+that cannot be relocalized into is reset.
 
 Each keyframe stage runs in a `torch.profiler.record_function` block named
 as the reference's profiler spans (`kf.add`, `kf.cull_map`, ...). With
@@ -23,7 +25,6 @@ events into it, for the caller to read once it has synchronised."""
 from __future__ import annotations
 
 import collections
-import contextlib
 import enum
 from dataclasses import dataclass, field
 
@@ -31,7 +32,8 @@ import numpy as np
 import torch
 
 from dr_slam_torch import resolve_device
-from dr_slam_torch.associate.vocabulary import compute_bow
+from dr_slam_torch.associate import keyframe_db
+from dr_slam_torch.associate.vocabulary import bow_scores, compute_bow, word_ids
 from dr_slam_torch.config import SlamConfig
 from dr_slam_torch.frontend.frame import FrameFeatures, extract_frame
 from dr_slam_torch.geometry import se3
@@ -40,9 +42,14 @@ from dr_slam_torch.manhattan.tracker import track_manhattan_frame
 from dr_slam_torch.optimize.global_ba import (bundle_adjust,
                                               local_problem_from_state,
                                               problem_from_state)
+from dr_slam_torch.optimize.pnp import pnp_ransac
+from dr_slam_torch.optimize.pose_opt import pose_optimize
+from dr_slam_torch.optimize.sim3 import sim3_ransac
 from dr_slam_torch.slam import map_ops
+from dr_slam_torch.slam.loop_closing import _covis_full
 from dr_slam_torch.slam.state import MapState, make_empty_state
 from dr_slam_torch.slam.track_step import extract_and_track, track_step
+from dr_slam_torch.utils.profiling import stage_span
 
 
 class TrackState(enum.Enum):
@@ -76,6 +83,7 @@ class TrackingResult:
     manhattan_ok: bool
     is_keyframe: bool
     timestamp: float
+    rot_residual_deg: float = None   # set by System.track_rgbd given gt_R
 
 
 class _HostBundle:
@@ -134,6 +142,7 @@ class Tracker:
     _last_inliers: int = 0
     _last_matches: int = 0
     _last_man_ok: bool = False
+    _reloc_failures: int = 0
     _n_kfs_host: int = 0        # host mirror of map_state.n_kfs
     _map_gen: int = 0           # bumped on every map mutation
     _hard_gen: int = 0          # bumped on destructive mutations only
@@ -148,20 +157,10 @@ class Tracker:
         self.velocity = torch.eye(4, device=dev)
         self.R_cm = torch.eye(3, device=dev)
 
-    @contextlib.contextmanager
     def _span(self, name: str):
         """A profiler block named as the reference's span; with
         `stage_events` set, also a pair of CUDA events around it."""
-        with torch.profiler.record_function(name):
-            if self.stage_events is None or self.device.type != "cuda":
-                yield
-                return
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            yield
-            b.record()
-            self.stage_events.append((name, a, b))
+        return stage_span(name, self.stage_events, self.device)
 
     def _frame(self, gray, depth):
         """The frame as float32 tensors on the device: depth in metres, as
@@ -184,11 +183,13 @@ class Tracker:
         elif cfg.tracking.deferred_readback:
             self._resolve_pending(force=False)
             if self.state == TrackState.LOST:
-                res = self._relocalize()
+                res = self._relocalize(
+                    extract_frame(gray, depth, cfg, self.device), timestamp)
             else:
                 res = self._track_deferred(gray, depth, timestamp)
         elif self.state == TrackState.LOST:
-            res = self._relocalize()
+            res = self._relocalize(
+                extract_frame(gray, depth, cfg, self.device), timestamp)
         else:
             res = self._track(extract_frame(gray, depth, cfg, self.device),
                               timestamp)
@@ -530,7 +531,131 @@ class Tracker:
             pl_coef=out[2] if ws else st.pl_coef,
             ln_ep=out[3] if ws else st.ln_ep)
 
-    def _relocalize(self):
-        raise NotImplementedError(
-            "relocalization is not ported yet (ROADMAP.md queue 1 item 8): "
-            "the tracker is LOST")
+    def _relocalize(self, feats: FrameFeatures, ts: float) -> TrackingResult:
+        """Relocalization (Tracking.cc:3543): BoW covisibility-group
+        candidates plus the raw top 3, descriptor matches per candidate,
+        Horn-RANSAC on 3D-3D pairs (or PnP-RANSAC where depth is missing),
+        pose optimisation, a wide projection search when that lands under
+        50 inliers (Tracking.cc:3627-3664), then a full-map projection
+        check. Three failures on a young map reset it (Tracking.cc:698)."""
+        cfg = self.cfg
+        st = self.map_state
+        bow = compute_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
+        scores = _host(bow_scores(bow, st.kf_bow, st.kf_valid))
+        # group-accumulated shortlist with no minScore floor (the query
+        # frame has no covisible neighbours to derive one from)
+        common = _host(keyframe_db.common_word_counts(bow, st.kf_bow,
+                                                      st.kf_valid))
+        order = keyframe_db.group_candidates(
+            scores, common, _host(_covis_full(st)), _host(st.kf_valid))[:5]
+        # union with the raw top 3: where scores are near-uniform, group
+        # accumulation can drop the nearby keyframe the raw score ranks
+        # first; the geometric checks arbitrate
+        for k in np.argsort(-scores)[:3]:
+            if int(k) not in order and scores[int(k)] > 0:
+                order.append(int(k))
+
+        kp_word = word_ids(feats.kp.desc, cfg.map.vocab_words)
+        for kf_id in order:
+            if float(scores[kf_id]) <= 0:
+                continue
+            ref = map_ops.match_reference_kf(
+                st, kf_id, feats.kp.desc, feats.kp.valid,
+                max_hamming=map_ops.TH_HIGH, kp_word=kp_word,
+                kf_word=st.kf_word[kf_id])
+            if int(ref.n_matches) < 15:
+                continue
+            ok3d = ref.mp_idx >= 0
+            pts3d = st.pt_pos[torch.clamp(ref.mp_idx, min=0)]
+            # RGB-D: 3D-3D Horn on measured depth is well-posed for the
+            # coplanar landmarks where a 2D-3D DLT degenerates
+            pairs3d = ok3d & (feats.kp_depth > 1e-3)
+            used_horn = int(torch.sum(pairs3d)) >= 10
+            if used_horn:
+                T0, _, n_in = sim3_ransac(pts3d, feats.kp_xyz, pairs3d,
+                                          inlier_dist=0.10)
+            else:
+                T0, n_in = pnp_ransac(pts3d, feats.kp.uv, ok3d, cfg.camera.K4)
+            n_in = int(n_in)
+            if n_in < 10:
+                continue
+            pm = map_ops.match_planes(st, feats.planes.coeffs,
+                                      feats.planes.valid, T0)
+            lm = map_ops.match_lines_projection(
+                st, feats.lines.seg2d, feats.lines.desc,
+                feats.lines.valid & feats.lines.has3d, T0, cfg.camera.K4,
+                width=cfg.camera.width, height=cfg.camera.height)
+            obs = map_ops.build_pose_obs(st, feats, ref.mp_idx, pm, lm.ml_idx,
+                                         n_struct=cfg.map.max_kf_planes)
+            opt = pose_optimize(T0, obs, cfg.camera.K4, cfg.camera.bf)
+            if int(opt.n_inliers) < 50:
+                # the candidate ladder: search the whole map by projection
+                # from the coarse pose, without the scale gate, and
+                # re-optimise on the richer set
+                wide = map_ops.match_points_projection(
+                    st, feats.kp.uv, feats.kp.desc, feats.kp.valid,
+                    opt.T_cw, cfg.camera.K4, radius=10.0,
+                    max_hamming=map_ops.TH_HIGH,
+                    width=cfg.camera.width, height=cfg.camera.height,
+                    kp_angle=feats.kp.angle)
+                if int(wide.n_matches) > int(opt.n_inliers):
+                    obs = map_ops.build_pose_obs(
+                        st, feats, wide.mp_idx, pm, lm.ml_idx,
+                        n_struct=cfg.map.max_kf_planes)
+                    opt = pose_optimize(opt.T_cw, obs, cfg.camera.K4,
+                                        cfg.camera.bf)
+            # verify against the whole map: an aliased pose matches one
+            # keyframe consistently but projects poorly against the rest
+            verify = map_ops.match_points_projection(
+                st, feats.kp.uv, feats.kp.desc, feats.kp.valid, opt.T_cw,
+                cfg.camera.K4, radius=6.0, max_hamming=map_ops.TH_LOW + 10.0,
+                width=cfg.camera.width, height=cfg.camera.height,
+                kp_angle=feats.kp.angle, kp_octave=feats.kp.octave,
+                pt_scale=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels)
+            n_opt, n_ver = int(opt.n_inliers), int(verify.n_matches)
+            # acceptance: joint inliers and full-map consistency; or, on a
+            # drifted map where no rigid pose fits the whole map, a strong
+            # metric consensus (>= 50 Horn inliers at 0.10 m) with relaxed
+            # floors
+            strong_metric = (used_horn and n_in >= 50 and n_opt >= 15
+                             and n_ver >= 35)
+            if (n_opt >= 30 and n_ver >= 60) or strong_metric:
+                self.T_cw = opt.T_cw
+                self.velocity = torch.eye(4, device=self.device)
+                self.state = TrackState.OK
+                self._reloc_failures = 0
+                self._map_gen += 1
+                self._hard_gen += 1
+                self.ref_kf = int(kf_id)
+                if self.ref_kf not in self.kf_pose_host:
+                    # relocalized into a loaded map: anchor the relative
+                    # trajectory bookkeeping on the keyframe as it is
+                    self.kf_pose_host[self.ref_kf] = _host(
+                        st.kf_pose[self.ref_kf])
+                    self.kf_seq_host[self.ref_kf] = int(st.kf_seq[self.ref_kf])
+                    self._seq_counter = max(self._seq_counter,
+                                            self.kf_seq_host[self.ref_kf] + 1)
+                if bool(st.manhattan_ok):
+                    self.R_cm = opt.T_cw[:3, :3] @ st.R_wm
+                return TrackingResult(_host(opt.T_cw), self.state, n_opt,
+                                      int(ref.n_matches), False, False, ts)
+        # losing track on a young map (<= 5 keyframes soon after
+        # initialization) resets it rather than relocalizing forever
+        self._reloc_failures += 1
+        if (not self.only_tracking and self._reloc_failures >= 3
+                and self._n_kfs_host <= 5 and self._seq_counter <= 5):
+            if self.metrics is not None:
+                self.metrics.log("map_reset", frame=self.frame_id)
+            self.map_state = make_empty_state(cfg, self.device)
+            self.state = TrackState.NOT_INITIALIZED
+            self._reloc_failures = 0
+            self._n_kfs_host = 0
+            self._map_gen += 1
+            self._hard_gen += 1
+            self.kf_pose_host.clear()
+            self.kf_seq_host.clear()
+            self.kf_odom_host.clear()
+            # the map's kf_seq restarts at 0, and the host counter with it
+            self._seq_counter = 0
+        return TrackingResult(_host(self.T_cw), TrackState.LOST, 0, 0, False,
+                              False, ts)

@@ -11,8 +11,8 @@ within 2e-3 (observed 6e-4) and the map's float fields within the bounds
 below: each keyframe's local bundle adjustment is float32 conjugate
 gradients whose sums run in another order (tests/test_torch_ba.py), and
 tracking carries its result forward. After the last frame a black frame
-makes both trackers LOST with the same pose; on the next frame the port,
-which has no relocalization yet, raises NotImplementedError."""
+makes both trackers LOST with the same pose, and on the next frame both
+relocalize into the same keyframe, at poses within 2e-3."""
 
 import jax
 import numpy as np
@@ -124,9 +124,15 @@ def test_black_frame_is_lost_in_both(runs):
     assert (pb.state.name, pb.n_inliers) == (jb.state.name, jb.n_inliers)
 
 
-def test_next_frame_after_lost_raises(runs):
-    """Relocalization is not ported: the port stops explicitly instead of
-    tracking on from a lost pose."""
-    pt = runs["lost"][1]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pt.process_frame(*runs["next_frame"], (N + 1) / 30.0)
+def test_next_frame_relocalizes_in_both(runs):
+    """After the black frame both trackers relocalize on the next frame:
+    OK, into the same reference keyframe, at the same pose."""
+    jt, pt = runs["lost"]
+    frame = runs["next_frame"]
+    jr = jt.process_frame(*frame, (N + 1) / 30.0)
+    pr = pt.process_frame(*frame, (N + 1) / 30.0)
+    assert jr.state.name == pr.state.name == "OK"
+    assert pt.ref_kf == jt.ref_kf
+    assert (pr.n_inliers, pr.n_matches) == (jr.n_inliers, jr.n_matches)
+    np.testing.assert_allclose(_host(pr.T_cw), np.asarray(jr.T_cw), rtol=0,
+                               atol=T_TOL)

@@ -1,7 +1,8 @@
 """Helpers shared by the parity tests of the PyTorch port against the JAX
-package: the small configuration of tests/test_tracking_e2e.py in both
-packages, and the carriers of frame features and map states from JAX into
-the port."""
+package: the small configurations of tests/test_tracking_e2e.py and
+tests/test_loop_closure.py in both packages, the carriers of frame features
+and map states from JAX into the port, and the wait that makes the JAX
+tracker's deferred decision lag by exactly one frame."""
 
 from __future__ import annotations
 
@@ -32,6 +33,25 @@ def small_cfg(deferred: bool = True) -> SlamConfig:
                       max_keyframes=32, vocab_words=512))
     return cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, deferred_readback=deferred))
+
+
+def loop_cfg() -> SlamConfig:
+    """tests/test_loop_closure.py's configuration: small_cfg with keyframe
+    culling off, 15 / 6 px match windows and a loop consistency of 1 (the
+    port's is dr_slam_torch._smoke.loop_small_cfg)."""
+    cfg = small_cfg()
+    return cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, run_kf_culling=False, motion_search_radius=15.0,
+        local_search_radius=6.0, loop_consistency=1))
+
+
+def wait_pending(system) -> None:
+    """Wait for every pending deferred frame of a JAX System's tracker, so
+    its next frame resolves them: the decision lags by exactly one frame,
+    as the port's does on the CPU."""
+    import jax
+    for entry in system.tracker._pending:
+        jax.block_until_ready(entry[2].bundle)
 
 
 def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
