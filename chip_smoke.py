@@ -22,7 +22,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    eager launches back to back, 200 wrapper calls and 10 calls of the plain
    version, each divided by its count, and the device time of each of its
    three CUDA kernels from torch.profiler. Last, a pipelined
-   loop of 240 frames (the four frames cycled, as bench.py's
+   loop of 64 frames (the four frames cycled, as bench.py's
    bench_odometry does) is timed.
 4. tracker: `Tracker(cfg, device="cuda").process_frame` from an empty map
    over the 24 frames of dr_slam_torch/data/mapping_corridor.npz (made by
@@ -54,9 +54,31 @@ Phases (any failure exits non-zero, and the result line is not printed):
    resolved blocking. Prints loop.process and its pose-graph, re-anchoring
    and seam-fuse stages between CUDA events, the BA's host dispatch time and
    its device time on its own stream, and the peak device memory.
+7. device loop: `DeviceLoopTracker(cfg, device="cuda")` from an empty map
+   over the 24 mapping-fixture frames as the camera gives them (uint8 gray,
+   uint16 depth), 2 black frames, then frames 6-11 again (a teleport back
+   along the corridor), against the JAX DeviceLoopTracker's records in
+   dr_slam_torch/data/device_loop_corridor.npz (made by
+   scripts/make_torch_device_loop_fixture.py): states, keyframe flags,
+   reference keyframes and their sequences exact, T_cw and the counts
+   within `device_loop_gaps`' bounds; the matcher launched twice per
+   tracked frame, once more per relocalization attempt (the second black
+   frame and the first frame back) and never on init; the kernel against
+   its plain version on each attempt's verify inputs. Prints each step,
+   wall ms per frame and frames/s (each frame synchronises on the readback
+   of its flags), readbacks per frame, each keyframe's `kf.*` stage times
+   between CUDA events, the stage profiler's summary of the same spans
+   (on for this phase), and the peak device memory.
+8. multi-sequence: `MultiSequenceTracker(cfg, 2, device="cuda")` over 12
+   steps, sequence 0 on fixture frames 0-11 and sequence 1 on frames 4-15:
+   sequence 0 equals phase 7's first 12 records (states, keyframe flags and
+   reference keyframes exact, T_cw within 1e-4: the card's scatter-adds are
+   atomics), sequence 1 never goes LOST and differs from sequence 0. Prints
+   the aggregate frames/s.
 
 The kernel table's `launches` adds the main path's, the tracker's, the two
-System scenarios' and the loop phase's.
+System scenarios', the loop phase's, the device loop's and the
+multi-sequence phase's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -88,7 +110,9 @@ def fail(msg: str) -> None:
 # by 2%.
 T_TOL = 1e-3          # max |T_cw - T_cw_jax| entry (rotation, meters)
 COUNT_TOL = 0.02      # |n_matches - jax|, |n_inliers - jax| over the jax count
-PIPELINE_FRAMES = 240
+# 64, not bench_odometry's 240: at about 1 s a frame on the host, the
+# loop would take most of the run's time limit as the phases grow
+PIPELINE_FRAMES = 64
 
 # Where the TPU kernel that the CUDA kernel replaces lives, in the JAX
 # reference package. The package name is assembled so that a search of this
@@ -368,6 +392,160 @@ def loop_phase(dev, card: str) -> int:
     return launches
 
 
+def device_loop_phase(dev, cfg, card: str) -> tuple[int, float, object]:
+    """Phase 7: the DeviceLoopTracker at full width over the mapping
+    fixture's frames, 2 black frames and frames 6-11 again, against the JAX
+    run in the device-loop fixture; the kernel against its plain version
+    on `_reloc_attempt`'s verify inputs. -> (matcher launches, the kernel's
+    max abs error, the run)."""
+    import numpy as np
+    import torch
+
+    from dr_slam_torch._smoke import (DEVICE_LOOP_FIXTURE, device_loop_gaps,
+                                      expected_launches, load_mapping_fixture,
+                                      load_npz, run_device_loop)
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.utils.profiling import PROFILER
+
+    data = load_npz(DEVICE_LOOP_FIXTURE)
+    order = [int(i) for i in data["frame"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    match_cuda.gated_top2_hamming.launches = 0
+    PROFILER.reset()
+    PROFILER.enable()
+    try:
+        run = run_device_loop(load_mapping_fixture(), order, cfg, dev,
+                              capture=True)
+    finally:
+        PROFILER.disable()
+    launches = match_cuda.gated_top2_hamming.launches
+    profile = PROFILER.summary()
+    PROFILER.reset()
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    tr = run.tracker
+    states = run.flushed["states"]
+    recs, want = run.flushed["records"], data["records"]
+    for n, i in enumerate(order):
+        print(f"[device loop] step {n} (frame {i}): {states[n]} n_inliers "
+              f"{int(recs[n, 17])} (jax {int(want[n, 17])}) n_matches "
+              f"{int(recs[n, 18])} (jax {int(want[n, 18])}) kf "
+              f"{int(recs[n, 19])} ref_kf {int(recs[n, 20])} (jax "
+              f"{int(want[n, 20])}) launches {run.launches[n]} readbacks "
+              f"{tr.readbacks[n]}" + (" relocalization attempted"
+                                      if tr.relocs[n] else "")
+              + f" {run.ms[n]:.1f} ms", flush=True)
+    for k, stages in enumerate(run.keyframes):
+        total = sum(ms for _, ms in stages)
+        print(f"[device loop] keyframe {k}: " + ", ".join(
+            f"{name} {ms:.2f} ms" for name, ms in stages)
+            + f"; total {total:.2f} ms between CUDA events on {card}",
+            flush=True)
+    print(f"[device loop] stage profiler (CUDA events, read after one "
+          f"synchronise): {json.dumps(profile)}", flush=True)
+    n_kf = int(recs[:, 19].sum())
+    if profile.get("kf.add", {}).get("count") != n_kf:
+        fail(f"device loop: the stage profiler holds {profile}, not {n_kf} "
+             "kf.add spans")
+    seconds = sum(run.ms) / 1e3
+    print(f"[device loop] {len(order)} frames in {seconds:.2f} s = "
+          f"{len(order) / seconds:.3f} frames/s ({seconds / len(order) * 1e3:.1f}"
+          f" ms/frame wall; each frame synchronises on its flags' readback), "
+          f"readbacks per frame {json.dumps(tr.readbacks)}, peak device "
+          f"memory {peak_gib:.3f} GiB above what the earlier phases held, "
+          f"on {card}", flush=True)
+    gaps, fails = device_loop_gaps(run, data)
+    print(f"[device loop] against the JAX DeviceLoopTracker: "
+          f"{json.dumps(gaps)}; jax n_keyframes {int(data['n_keyframes'])} "
+          f"n_pts {int(data['n_pts'])}; matcher launches {launches}",
+          flush=True)
+    want_launches = expected_launches(states, tr.relocs)
+    if run.launches != want_launches or launches != sum(want_launches):
+        fail(f"device loop: matcher launches {run.launches}, expected "
+             f"{want_launches}")
+    if not tr.relocs[order.index(-1) + 1]:
+        fail("device loop: the second black frame attempted no "
+             "relocalization")
+    if fails:
+        fail("device loop disagrees with the JAX run: " + "; ".join(fails))
+    if not np.isfinite(recs).all():
+        fail("device loop: non-finite records")
+    # the kernel on the verify of every relocalization attempt
+    err = 0.0
+    for n, a in zip([n for n, r in enumerate(tr.relocs) if r],
+                    run.verify_calls):
+        out_k = match_cuda.gated_top2_hamming(*a)
+        torch.cuda.synchronize()
+        out_r = match_cuda.gated_top2_hamming_ref(*a)
+        mism, e = _compare(out_k, out_r, torch)
+        print(f"[kernel] device-loop relocalization verify, step {n}: "
+              f"K={a[0].shape[0]} NC={a[4].shape[0]} valid={int(a[9].sum())} "
+              f"keypoints {int(a[2].sum())} mismatches={mism} "
+              f"max_abs_err={e}", flush=True)
+        if any(mism.values()):
+            fail(f"kernel disagrees with its plain version (device-loop "
+                 f"verify, step {n}): {mism}")
+        err = max(err, e)
+    if len(run.verify_calls) != sum(tr.relocs):
+        fail(f"{sum(tr.relocs)} relocalization attempts but "
+             f"{len(run.verify_calls)} verify launches")
+    return launches, err, run
+
+
+MULTI_STEPS = 12
+MULTI_OFFSET = 4      # sequence 1 starts at this fixture frame
+
+
+def multi_seq_phase(dev, cfg, card: str, loop_run) -> int:
+    """Phase 8: MultiSequenceTracker(cfg, 2) over 12 steps, sequence 0 on
+    fixture frames 0-11, sequence 1 on frames 4-15; sequence 0 against
+    phase 7's first 12 records. -> matcher launches."""
+    import numpy as np
+    import torch
+
+    from dr_slam_torch._smoke import load_mapping_fixture
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.parallel.multi_seq import MultiSequenceTracker
+
+    mdata = load_mapping_fixture()
+    tr = MultiSequenceTracker(cfg, 2, device=dev)
+    match_cuda.gated_top2_hamming.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MULTI_STEPS):
+        idx = [i, i + MULTI_OFFSET]
+        tr.track(mdata["gray"][idx], mdata["depth"][idx], [i / 30.0] * 2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = match_cuda.gated_top2_hamming.launches
+    f = tr.flush()
+    ref = loop_run.flushed["records"][:MULTI_STEPS]
+    s0, s1 = f[0]["records"], f[1]["records"]
+    dT = float(np.abs(s0[:, :16] - ref[:, :16]).max())
+    trans = [3, 7, 11]                  # T_cw's translation in a record
+    spread = float(np.abs(s1[:, trans] - s0[:, trans]).max())
+    print(f"[multi] 2 sequences x {MULTI_STEPS} steps in {seconds:.2f} s = "
+          f"{2 * MULTI_STEPS / seconds:.3f} frames/s aggregate (one stream), "
+          f"on {card}; states {f[0]['states'].count('OK')} / "
+          f"{f[1]['states'].count('OK')} OK, keyframes "
+          f"{f[0]['n_keyframes']} / {f[1]['n_keyframes']}, sequence 0 vs "
+          f"phase 7 |dT_cw| {dT:.2e}, sequences apart by {spread:.3f} m; "
+          f"readbacks per step {json.dumps(tr.readbacks)}; matcher launches "
+          f"{launches}", flush=True)
+    for k, name in ((16, "states"), (19, "is_kf"), (20, "ref_kf")):
+        if not np.array_equal(s0[:, k], ref[:, k]):
+            fail(f"multi: sequence 0's {name} differ from phase 7's")
+    if dT > 1e-4:
+        fail(f"multi: sequence 0 |dT_cw| {dT:.2e} > 1e-4 from phase 7")
+    if "LOST" in f[1]["states"] or spread < 1e-3:
+        fail(f"multi: sequence 1 {f[1]['states']}, apart by {spread}")
+    want = sum(2 * f[s]["states"][1:].count("OK") for s in range(2))
+    if launches != want:
+        fail(f"multi: {launches} matcher launches, expected {want}")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -568,12 +746,20 @@ def main() -> None:
     err = max(err, err5)
     # --- 6. loop closing on the loop fixture -------------------------------------
     loop_launches = loop_phase(dev, card)
+    # --- 7. the device-resident loop ---------------------------------------------
+    device_loop_launches, err7, loop_run = device_loop_phase(dev, cfg, card)
+    err = max(err, err7)
+    # --- 8. multi-sequence ---------------------------------------------------------
+    multi_launches = multi_seq_phase(dev, cfg, card, loop_run)
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
-          f"{system_launches['b']}, loop {loop_launches} (the pipelined "
-          f"timing loop's {2 * PIPELINE_FRAMES} not counted)", flush=True)
+          f"{system_launches['b']}, loop {loop_launches}, device loop "
+          f"{device_loop_launches}, multi-sequence {multi_launches} (the "
+          f"pipelined timing loop's {2 * PIPELINE_FRAMES} not counted)",
+          flush=True)
     total_launches = (launches + tracker_launches
-                      + sum(system_launches.values()) + loop_launches)
+                      + sum(system_launches.values()) + loop_launches
+                      + device_loop_launches + multi_launches)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -2,8 +2,9 @@
 profiler (`scripts/profile_torch_frame.py`) and its CUDA and full-size
 tests: the card's name line, the smoke fixture, the pipelined frame loop,
 matcher inputs at the main path's shapes, the mapping fixture with the
-Tracker run over it, the reloc fixture with the System run over it, and the
-loop fixture with the bounds of a loop correction."""
+Tracker run over it, the reloc fixture with the System run over it, the
+loop fixture with the bounds of a loop correction, and the device-loop
+fixture with the DeviceLoopTracker run over the mapping fixture's frames."""
 
 from __future__ import annotations
 
@@ -491,4 +492,133 @@ def system_gaps(run: SystemRun, data: dict, prefix: str) -> tuple[dict, list]:
         fails.append(f"n_pts {gaps['n_pts']}, JAX {ref}")
     if prefix == "a" and run.fingerprints[0] != run.fingerprints[1]:
         fails.append("localization mode changed the map")
+    return gaps, fails
+
+
+# --- the device-resident loop ------------------------------------------------
+
+DEVICE_LOOP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "data", "device_loop_corridor.npz")
+
+
+class DeviceLoopRun(NamedTuple):
+    flushed: dict        # DeviceLoopTracker.flush()
+    tracker: object      # the DeviceLoopTracker
+    launches: list       # matcher launches per frame
+    ms: list             # wall ms per frame (the step reads back its flags)
+    keyframes: list      # per insertion [(stage, device ms)]; cuda only
+    verify_calls: list   # the matcher's inputs inside _reloc_attempt
+
+
+def device_loop_frames(mdata: dict, order) -> list:
+    """The mapping fixture's frames in `order` (-1: a black frame), as the
+    camera gives them: [(gray uint8, depth uint16)]."""
+    black = (np.zeros_like(mdata["gray"][0]), np.zeros_like(mdata["depth"][0]))
+    return [(mdata["gray"][i], mdata["depth"][i]) if i >= 0 else black
+            for i in order]
+
+
+def run_device_loop(mdata: dict, order, cfg, device,
+                    capture: bool = False) -> DeviceLoopRun:
+    """The port's DeviceLoopTracker from an empty map over the mapping
+    fixture's frames in `order`, frame n at timestamp n / 30. On the GPU
+    each keyframe stage is timed with a pair of CUDA events. With
+    `capture`, the matcher's inputs inside `_reloc_attempt` are kept."""
+    from dr_slam_torch.ops.match_cuda import gated_top2_hamming
+    from dr_slam_torch.slam import device_loop, map_ops
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    tr = device_loop.DeviceLoopTracker(cfg, device=dev)
+    if cuda:
+        tr.stage_events = []
+    kernel, reloc = map_ops.gated_top2_hamming, device_loop._reloc_attempt
+    inside, calls = [False], []
+
+    def watched_reloc(*a):
+        inside[0] = True
+        try:
+            return reloc(*a)
+        finally:
+            inside[0] = False
+
+    def watched_kernel(*a):
+        if capture and inside[0]:
+            calls.append(tuple(x.clone() for x in a))
+        return kernel(*a)
+
+    device_loop._reloc_attempt = watched_reloc
+    map_ops.gated_top2_hamming = watched_kernel
+    launches, ms = [], []
+    try:
+        for n, (g, d) in enumerate(device_loop_frames(mdata, order)):
+            before = gated_top2_hamming.launches
+            t0 = time.perf_counter()
+            tr.track(g, d, n / 30.0)
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(gated_top2_hamming.launches - before)
+    finally:
+        map_ops.gated_top2_hamming = kernel
+        device_loop._reloc_attempt = reloc
+    keyframes = []
+    if cuda:
+        torch.cuda.synchronize()
+        for name, a, b in tr.stage_events:
+            if name == "kf.add":
+                keyframes.append([])
+            keyframes[-1].append((name, a.elapsed_time(b)))
+    return DeviceLoopRun(tr.flush(), tr, launches, ms, keyframes, calls)
+
+
+def expected_launches(states: list, relocs: list) -> list:
+    """The matcher launches each device-loop frame must make: none while
+    the map is uninitialized (the init branch), two per tracked frame
+    (`track_step`), one more per relocalization attempt (the verify)."""
+    out, inited = [], False
+    for state, reloc in zip(states, relocs):
+        out.append(2 + int(reloc) if inited else 0)
+        inited = inited or state != "NOT_INITIALIZED"
+    return out
+
+
+# Records compared exactly: state, keyframe flag, reference keyframe slot
+# and its insertion sequence.
+DEVICE_LOOP_EXACT = {16: "state", 19: "is_kf", 20: "ref_kf", 21: "ref_seq"}
+
+
+def device_loop_gaps(run: DeviceLoopRun, data: dict) -> tuple[dict, list]:
+    """A DeviceLoopTracker run's distances from the JAX run of the
+    device-loop fixture, and the failed checks: the exact record fields,
+    T_cw within TRACKER_T_TOL, counts within TRACKER_COUNT_TOL, the
+    keyframe count exact and the point count within TRACKER_COUNT_TOL."""
+    got, want = run.flushed["records"], data["records"]
+    st = run.tracker.map_state
+    gaps = dict(max_dT=float(np.abs(got[:, :16] - want[:, :16]).max()),
+                d_inliers=int(np.abs(got[:, 17] - want[:, 17]).max()),
+                d_matches=int(np.abs(got[:, 18] - want[:, 18]).max()),
+                n_keyframes=run.flushed["n_keyframes"], n_pts=int(st.n_pts),
+                n_planes=int(st.pl_valid.sum()),
+                n_lines=int(st.ln_valid.sum()))
+    fails = []
+    if got.shape != want.shape:
+        return gaps, [f"records {got.shape}, JAX {want.shape}"]
+    for k, name in DEVICE_LOOP_EXACT.items():
+        if not np.array_equal(got[:, k], want[:, k]):
+            fails.append(f"{name} {got[:, k].astype(int).tolist()}, JAX "
+                         f"{want[:, k].astype(int).tolist()}")
+    if gaps["max_dT"] > TRACKER_T_TOL:
+        fails.append(f"|dT_cw| {gaps['max_dT']:.2e} > {TRACKER_T_TOL}")
+    for k, name in ((17, "n_inliers"), (18, "n_matches")):
+        bad = np.abs(got[:, k] - want[:, k]) > TRACKER_COUNT_TOL * np.maximum(
+            want[:, k], 1)
+        fails += [f"frame {n}: {name} {int(got[n, k])}, JAX {int(want[n, k])}"
+                  for n in np.where(bad)[0]]
+    if gaps["n_keyframes"] != int(data["n_keyframes"]):
+        fails.append(f"n_keyframes {gaps['n_keyframes']}, JAX "
+                     f"{int(data['n_keyframes'])}")
+    ref = int(data["n_pts"])
+    if abs(gaps["n_pts"] - ref) > TRACKER_COUNT_TOL * ref:
+        fails.append(f"n_pts {gaps['n_pts']}, JAX {ref}")
     return gaps, fails

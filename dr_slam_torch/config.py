@@ -264,3 +264,82 @@ def tum_freiburg3() -> SlamConfig:
         "ORBextractor.iniThFAST": 20,
         "ORBextractor.minThFAST": 7,
     })
+
+
+def icl_nuim() -> SlamConfig:
+    """Preset matching Examples/RGB-D/ICL.yaml camera model."""
+    return load_config({
+        "Camera.fx": 481.2, "Camera.fy": 480.0,
+        "Camera.cx": 319.5, "Camera.cy": 239.5,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 5000.0,
+    })
+
+
+def tum_freiburg1() -> SlamConfig:
+    """Preset matching Examples/RGB-D/TUM1.yaml (fr1 sequences; strong
+    radial distortion, so the undistortion path is exercised)."""
+    return load_config({
+        "Camera.fx": 517.306408, "Camera.fy": 516.469215,
+        "Camera.cx": 318.643040, "Camera.cy": 255.313989,
+        "Camera.k1": 0.262383, "Camera.k2": -0.953104,
+        "Camera.p1": -0.005358, "Camera.p2": 0.002628,
+        "Camera.k3": 1.163314,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 5000.0,
+    })
+
+
+def tum_freiburg2() -> SlamConfig:
+    """Preset matching Examples/RGB-D/TUM2.yaml (fr2 sequences; note the
+    non-standard DepthMapFactor 5208)."""
+    return load_config({
+        "Camera.fx": 520.908620, "Camera.fy": 521.007327,
+        "Camera.cx": 325.141442, "Camera.cy": 249.701764,
+        "Camera.k1": 0.231222, "Camera.k2": -0.784899,
+        "Camera.p1": -0.003257, "Camera.p2": -0.000105,
+        "Camera.k3": 0.917205,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 5208.0,
+    })
+
+
+def tamu() -> SlamConfig:
+    """Preset matching Examples/RGB-D/TAMU.yaml (Kinect corridors)."""
+    return load_config({
+        "Camera.fx": 525.0, "Camera.fy": 525.0,
+        "Camera.cx": 319.5, "Camera.cy": 239.5,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 5000.0,
+    })
+
+
+def realsense() -> SlamConfig:
+    """Preset matching Examples/RGB-D/Realsense.yaml (live D4xx capture;
+    millimeter depth units)."""
+    return load_config({
+        "Camera.fx": 609.70550296798035, "Camera.fy": 609.09579671294716,
+        "Camera.cx": 319.16667152289227, "Camera.cy": 235.58360480225772,
+        "Camera.k1": 0.092615504465028850, "Camera.k2": -0.18082438825995681,
+        "Camera.p1": -0.00065484100374765971,
+        "Camera.p2": -0.00035829351558557421,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 1000.0,
+    })
+
+
+def tartanair() -> SlamConfig:
+    """Preset matching Examples/RGB-D/TartanAir.yaml (synthetic flight;
+    ideal pinhole, millimeter depth units)."""
+    return load_config({
+        "Camera.fx": 320.0, "Camera.fy": 320.0,
+        "Camera.cx": 320.0, "Camera.cy": 240.0,
+        "Camera.width": 640, "Camera.height": 480,
+        "Camera.fps": 30.0, "Camera.bf": 40.0,
+        "DepthMapFactor": 1000.0,
+    })

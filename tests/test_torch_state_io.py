@@ -25,6 +25,8 @@ from dr_slam_torch.associate import vocabulary as tvoc
 from dr_slam_torch.io import map_io as tio
 from dr_slam_torch.slam.state import MapState, make_empty_state as tempty
 
+from torch_parity import shipped_codebooks_in_jax
+
 torch.set_num_threads(2)
 
 _PACKED = ("pt_desc", "pt_desc_ring", "kf_desc", "ln_desc")
@@ -63,17 +65,10 @@ def assert_same_state(port: MapState, ref):
 
 @pytest.fixture
 def system_vocabulary():
-    """Register the shipped codebooks in the JAX package as its `System`
-    does (the port always loads its own copies); restore the registry
-    afterwards so other tests see the JAX package's defaults."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    saved = dict(jvoc._trained_signs)
-    for name in ("vocab512.npz", "vocab.npz"):
-        with np.load(os.path.join(root, "dr_slam_tpu", "data", name)) as data:
-            jvoc.set_vocabulary(data["words"])
-    yield
-    jvoc._trained_signs.clear()
-    jvoc._trained_signs.update(saved)
+    """The shipped codebooks registered in the JAX package as its `System`
+    registers them (the port falls back to its own copies)."""
+    with shipped_codebooks_in_jax():
+        yield
 
 
 @pytest.fixture(scope="module")

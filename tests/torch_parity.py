@@ -1,12 +1,14 @@
 """Helpers shared by the parity tests of the PyTorch port against the JAX
 package: the small configurations of tests/test_tracking_e2e.py and
-tests/test_loop_closure.py in both packages, the carriers of frame features
-and map states from JAX into the port, and the wait that makes the JAX
-tracker's deferred decision lag by exactly one frame."""
+tests/test_loop_closure.py in both packages, the carriers of frame features,
+map states and device-loop carries from JAX into the port, and the wait
+that makes the JAX tracker's deferred decision lag by exactly one frame."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -54,6 +56,32 @@ def wait_pending(system) -> None:
         jax.block_until_ready(entry[2].bundle)
 
 
+@contextlib.contextmanager
+def shipped_codebooks_in_jax():
+    """Register the shipped codebooks in the JAX package for the block, as
+    its `System` does, then restore its registry. Where nothing is
+    registered the port uses the shipped codebook and the JAX package a
+    seeded random one, so a JAX `DeviceLoopTracker`, which registers none,
+    needs this to use the port's words. A jitted program bakes the
+    codebook in when it is traced, so JAX's caches are cleared on the way
+    in and on the way out."""
+    import jax
+    from dr_slam_tpu.associate import vocabulary as jvoc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    saved = dict(jvoc._trained_signs)
+    for name in ("vocab512.npz", "vocab.npz"):
+        with np.load(os.path.join(root, "dr_slam_tpu", "data", name)) as data:
+            jvoc.set_vocabulary(data["words"])
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jvoc._trained_signs.clear()
+        jvoc._trained_signs.update(saved)
+        jax.clear_caches()
+
+
 def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
     fields = {}
     for f in dataclasses.fields(cfg):
@@ -86,6 +114,39 @@ def feats_to_port(f) -> FrameFeatures:
 def state_to_port(st):
     return from_jax_state({k: np.asarray(v) for k, v in st._asdict().items()},
                           "cpu")
+
+
+CARRY_SCALARS = ("T_cw", "velocity", "R_cm", "ref_kf", "lost", "frame_id",
+                 "last_kf_frame", "last_kf_inliers")
+
+
+def carry_arrays(carry, prefix: str = "") -> dict:
+    """A JAX `LoopCarry` as numpy arrays: "<prefix>map__<field>" for the
+    map state, "<prefix><field>" for the rest (the fixtures' layout)."""
+    out = {f"{prefix}map__{k}": np.asarray(v)
+           for k, v in carry.map_state._asdict().items()}
+    out.update({f"{prefix}{k}": np.asarray(getattr(carry, k))
+                for k in CARRY_SCALARS})
+    return out
+
+
+def carry_to_port(carry, prefix: str = "", device="cpu"):
+    """A JAX `LoopCarry`, or its arrays as `carry_arrays` lays them out (a
+    fixture's), -> the port's `LoopCarry` on `device`, bit for bit; the
+    reference keyframe slot becomes int64."""
+    from dr_slam_torch.slam.device_loop import LoopCarry
+
+    arrays = carry if isinstance(carry, dict) else carry_arrays(carry)
+    dev = torch.device(device)
+    m = f"{prefix}map__"
+    st = from_jax_state({k[len(m):]: v for k, v in arrays.items()
+                         if k.startswith(m)}, dev)
+    dtypes = {"ref_kf": torch.int64, "lost": torch.bool}
+
+    def scalar(k):
+        x = torch.from_numpy(np.array(arrays[prefix + k]))
+        return x.to(dtypes.get(k, x.dtype)).to(dev)
+    return LoopCarry(map_state=st, **{k: scalar(k) for k in CARRY_SCALARS})
 
 
 def assert_states_match(jst, tst, atol: float, fields=None) -> None:
