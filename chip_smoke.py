@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and the result line is not printed):
-1. build: compiles the CUDA kernel from dr_slam_torch/csrc with nvcc.
+1. build: compiles the CUDA kernel from dr_slam_torch/csrc with nvcc and,
+   at the same time, the native frame loader from the same directory with
+   g++.
 2. kernel: the gated top-2 Hamming kernel against its plain PyTorch version
    at the main path's shapes (K = 1024 keypoints, NC = 32768 candidates), on
    inputs with a few thousand valid candidates and equal-distance ties built
@@ -76,15 +78,40 @@ Phases (any failure exits non-zero, and the result line is not printed):
    atomics), sequence 1 never goes LOST and differs from sequence 0. Prints
    the aggregate frames/s.
 
+9. dataset runner and streaming node: the 24 mapping-fixture frames are
+   written as a TUM sequence by the port's `export_tum_sequence` (ground
+   truth from dr_slam_torch/data/tum_corridor.npz, made by
+   scripts/make_torch_tum_fixture.py) and decoded back by the port's
+   Pillow reader and by the native loader (csrc/frame_loader.cpp, built
+   with g++ in phase 1); both must equal the fixture's frames exactly.
+   Then scripts/run_tum_torch.py's `main` runs on cuda through the native
+   loader, synchronised after each frame: states, keyframes and reference
+   keyframes equal the JAX runner's, T_cw and counts within `tracker_gaps`'
+   bounds, the saved trajectories within the same pose bound, the ATE
+   within 1e-3 of JAX's, 2 matcher launches per tracked frame, and the
+   kernel against its plain version on both of frame 11's launches;
+   `plane_meshes` on the final map beside the JAX mesh's counts. Last, a
+   `SlamServer` over `System(cfg, device="cuda")` serves a `CameraClient`
+   frames 0-11 on 127.0.0.1 from a thread of its own, then save_map and
+   save_occupancy: odometry against the JAX node's within `node_gaps`'
+   bounds, the saved map loadable. Prints decode ms per frame, frames/s and
+   ms per round trip.
+
+Phases 3-4 and 6-9 run with the shipped codebooks registered, as the JAX
+runs that made the fixtures had them (a bare Tracker or DeviceLoopTracker
+registers none; the System registers them itself).
+
 The kernel table's `launches` adds the main path's, the tracker's, the two
-System scenarios', the loop phase's, the device loop's and the
-multi-sequence phase's.
+System scenarios', the loop phase's, the device loop's, the multi-sequence
+phase's and the runner's and node's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import sys
@@ -546,6 +573,230 @@ def multi_seq_phase(dev, cfg, card: str, loop_run) -> int:
     return launches
 
 
+# plane_meshes' vertex and face counts on the runner's final map against the
+# JAX runner's: the plane clouds are placed by poses within TRACKER_T_TOL,
+# so a sample near a 10 cm cell border may change cells (on the CPU the
+# counts are equal).
+MESH_TOL = 0.05
+CHECK_FRAME = 11      # the runner's frame whose matcher inputs are kept
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tum_phase(dev, cfg, card: str) -> tuple[dict, dict]:
+    """Phase 9: the mapping fixture's frames exported as a TUM sequence and
+    decoded back, scripts/run_tum_torch.py over them, and a streaming-node
+    session over frames 0-11, against the JAX runner and node in the TUM
+    fixture. -> (matcher launches by part, the numbers printed)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dr_slam_torch._smoke import (NODE_FRAMES, TUM_T0, TrackerRun,
+                                      TRACKER_T_TOL, export_fixture_sequence,
+                                      load_mapping_fixture, load_tum_fixture,
+                                      node_frames, node_gaps, node_session,
+                                      read_tum_rows, track_rgbd_hook,
+                                      tracker_gaps)
+    from dr_slam_torch.io import map_io, transport, tum
+    from dr_slam_torch.io.mesh_export import plane_meshes
+    from dr_slam_torch.io.native_loader import NativeTUMLoader
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.system import System
+
+    data, mdata = load_tum_fixture(), load_mapping_fixture()
+    factor = cfg.camera.depth_factor
+    n = len(mdata["gray"])
+    want_gray = mdata["gray"].astype(np.float32)
+    want_depth = mdata["depth"].astype(np.float32) / np.float32(factor)
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "run_tum_torch", os.path.join(root, "scripts", "run_tum_torch.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    launches, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = export_fixture_sequence(tum.export_tum_sequence,
+                                      os.path.join(tmp, "seq"), mdata,
+                                      data["gt_T_cw"], factor)
+        # --- decode: the Pillow reader and the native loader -----------------
+        ds = tum.TUMDataset(seq, depth_factor=factor)
+        t0 = time.perf_counter()
+        frames = [ds[i] for i in range(len(ds))]
+        numbers["reader_ms"] = (time.perf_counter() - t0) * 1e3 / len(ds)
+        t0 = time.perf_counter()
+        loader = NativeTUMLoader(ds)
+        try:
+            native = [(i, g, d) for i, _, g, d in loader]
+        finally:
+            loader.close()
+        numbers["native_ms"] = (time.perf_counter() - t0) * 1e3 / len(ds)
+        bad = [i for i, f in enumerate(frames)
+               if not (np.array_equal(f.gray, want_gray[i])
+                       and np.array_equal(f.depth, want_depth[i]))]
+        bad += [i for i, g, d in native
+                if not (np.array_equal(g, want_gray[i])
+                        and np.array_equal(d, want_depth[i]))]
+        print(f"[tum] {len(ds)} frames exported and decoded back at "
+              f"{frames[0].gray.shape[1]}x{frames[0].gray.shape[0]}: reader "
+              f"{numbers['reader_ms']:.2f} ms/frame, native loader "
+              f"{numbers['native_ms']:.2f} ms/frame (host wall, prefetch "
+              f"thread included); frames differing from the fixture's: {bad}",
+              flush=True)
+        if bad or len(native) != n or len(ds) != n:
+            fail(f"tum: decoded frames differ from the fixture's: {bad}")
+
+        # --- the dataset runner ----------------------------------------------
+        # each frame synchronised and timed after System.track_rgbd; the
+        # matcher's inputs on CHECK_FRAME kept (the count stays the
+        # wrapper's own)
+        results, ref_kf, per_frame, ms, box = [], [], [], [], {}
+        last = [time.perf_counter(), 0]
+        kept, kernel = [], map_ops.gated_top2_hamming
+
+        def on_frame(res, system):
+            _sync(torch, dev)
+            now = time.perf_counter()
+            ms.append((now - last[0]) * 1e3)
+            per_frame.append(match_cuda.gated_top2_hamming.launches - last[1])
+            last[:] = [now, match_cuda.gated_top2_hamming.launches]
+            results.append(res)
+            ref_kf.append(system.tracker.ref_kf)
+            box["system"] = system
+
+        def keep(*a):
+            if len(results) == CHECK_FRAME:
+                kept.append(tuple(x.clone() for x in a))
+            return kernel(*a)
+
+        out_dir = os.path.join(tmp, "out")
+        match_cuda.gated_top2_hamming.launches = 0
+        map_ops.gated_top2_hamming = keep
+        t0 = time.perf_counter()
+        last[0] = t0
+        try:
+            with track_rgbd_hook(on_frame), \
+                    contextlib.redirect_stdout(io.StringIO()):   # its JSON
+                summary = runner.main([seq, "--out", out_dir,
+                                       "--native-loader", "--device",
+                                       dev.type])
+        finally:
+            map_ops.gated_top2_hamming = kernel
+        seconds = time.perf_counter() - t0
+        launches["runner"] = match_cuda.gated_top2_hamming.launches
+        system = box["system"]
+        run = TrackerRun(results, system.tracker, per_frame, sum(ms) / 1e3, [])
+        view = {k[len("run__"):]: v for k, v in data.items()
+                if k.startswith("run__")}
+        gaps, fails = tracker_gaps(run, view, t0=TUM_T0)
+        jsum = json.loads(str(data["run__summary"]))
+        gaps["d_ate"] = abs(summary["ate_rmse_m"] - jsum["ate_rmse_m"])
+        for name, key in (("CameraTrajectory.txt", "run__camera_traj"),
+                          ("KeyFrameTrajectory.txt", "run__kf_traj")):
+            rows, want = read_tum_rows(os.path.join(out_dir, name)), data[key]
+            if rows.shape != want.shape or not np.array_equal(rows[:, 0],
+                                                              want[:, 0]):
+                fails.append(f"{name}: rows {rows.shape}, JAX {want.shape}")
+                continue
+            gaps[name] = float(np.abs(rows[:, 1:] - want[:, 1:]).max())
+            if gaps[name] > TRACKER_T_TOL:
+                fails.append(f"{name} off by {gaps[name]:.2e}")
+        if ref_kf != data["run__ref_kf"].tolist():
+            fails.append(f"ref_kf {ref_kf}, JAX {data['run__ref_kf'].tolist()}")
+        if gaps["d_ate"] > 1e-3:
+            fails.append(f"ATE {summary['ate_rmse_m']}, JAX "
+                         f"{jsum['ate_rmse_m']}")
+        if summary["n_keyframes"] != jsum["n_keyframes"]:
+            fails.append(f"summary {summary}, JAX {jsum}")
+        v, f, _ = plane_meshes(system.tracker.map_state)
+        for got, key in ((len(v), "mesh__n_verts"), (len(f), "mesh__n_faces")):
+            if abs(got - int(data[key])) > MESH_TOL * int(data[key]):
+                fails.append(f"plane_meshes: {got} against JAX "
+                             f"{int(data[key])} ({key})")
+        numbers.update(runner_fps=n / sum(ms) * 1e3, runner_s=seconds,
+                       mesh=(len(v), len(f)))
+        for i, r in enumerate(results):
+            print(f"[tum] frame {i}: {r.state.name} ref_kf {ref_kf[i]} (jax "
+                  f"{int(data['run__ref_kf'][i])}) n_inliers {r.n_inliers} "
+                  f"(jax {int(data['run__n_inliers'][i])}) launches "
+                  f"{per_frame[i]} {ms[i]:.1f} ms", flush=True)
+        print(f"[tum] run_tum_torch.py: {json.dumps(summary)} (JAX "
+              f"{json.dumps(jsum)}); {n} frames in {sum(ms) / 1e3:.2f} s = "
+              f"{numbers['runner_fps']:.3f} frames/s synchronised per frame "
+              f"({seconds:.2f} s with start-up, shutdown and the files) on "
+              f"{card}; against the JAX runner {json.dumps(gaps)}; "
+              f"plane_meshes {len(v)} vertices {len(f)} faces (JAX "
+              f"{int(data['mesh__n_verts'])} / {int(data['mesh__n_faces'])});"
+              f" matcher launches {launches['runner']}", flush=True)
+        want_launches = [0] + [2] * (n - 1)
+        if dev.type == "cuda" and per_frame != want_launches:
+            fail(f"tum runner: matcher launches {per_frame}, expected "
+                 f"{want_launches}")
+        if fails:
+            fail("tum runner disagrees with the JAX runner: "
+                 + "; ".join(fails))
+        # the kernel on the runner's own inputs: both launches of CHECK_FRAME
+        err = 0.0
+        if len(kept) != 2:
+            fail(f"tum runner: {len(kept)} matcher calls kept on frame "
+                 f"{CHECK_FRAME}, expected 2")
+        for stage, a in enumerate(kept, 1):
+            out_k = match_cuda.gated_top2_hamming(*a)
+            _sync(torch, dev)
+            out_r = match_cuda.gated_top2_hamming_ref(*a)
+            mism, e = _compare(out_k, out_r, torch)
+            print(f"[kernel] runner frame {CHECK_FRAME} stage {stage}: "
+                  f"K={a[0].shape[0]} NC={a[4].shape[0]} "
+                  f"valid={int(a[9].sum())} mismatches={mism} "
+                  f"max_abs_err={e}", flush=True)
+            if any(mism.values()):
+                fail(f"kernel disagrees with its plain version (runner frame "
+                     f"{CHECK_FRAME} stage {stage}): {mism}")
+            err = max(err, e)
+        numbers["max_abs_err"] = err
+
+        # --- the streaming node ----------------------------------------------
+        server = transport.SlamServer(System(cfg, device=dev))
+        map_path = os.path.join(tmp, "node_map.npz")
+        match_cuda.gated_top2_hamming.launches = 0
+        try:
+            with track_rgbd_hook(lambda res, system: _sync(torch, dev)):
+                sess = node_session(transport, server,
+                                    node_frames(mdata, factor),
+                                    map_path=map_path)
+        finally:
+            server.close()
+        launches["node"] = match_cuda.gated_top2_hamming.launches
+        gaps, fails = node_gaps(sess, data)
+        loaded = map_io.load_map(map_path, cfg, dev)
+        rt = sess["ms"]
+        numbers["node_ms"] = float(np.median(rt))
+        print(f"[node] {len(rt)} frames through SlamServer on "
+              f"{'%s:%d' % server.address}: round trip "
+              + ", ".join(f"{x:.1f}" for x in rt)
+              + f" ms (median {numbers['node_ms']:.1f} ms, each frame "
+              f"synchronised) on {card}; states "
+              f"{[o['state'] for o in sess['odom']]}; save_map "
+              f"{sess['saved']} ({int(loaded.n_kfs)} keyframes loaded back); "
+              f"save_occupancy {json.dumps(sess['occ_status'])}; against the "
+              f"JAX node {json.dumps(gaps)}; matcher launches "
+              f"{launches['node']}", flush=True)
+        if sess["saved"] != {"ok": True, "cmd": "save_map"} or \
+                int(loaded.n_kfs) < 1:
+            fails.append(f"save_map: {sess['saved']}")
+        if dev.type == "cuda" and launches["node"] != 2 * (NODE_FRAMES - 1):
+            fails.append(f"node: {launches['node']} matcher launches, "
+                         f"expected {2 * (NODE_FRAMES - 1)}")
+        if fails:
+            fail("node disagrees with the JAX node: " + "; ".join(fails))
+    return launches, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -559,8 +810,8 @@ def main() -> None:
 
     from dr_slam_torch._smoke import (card_line, load_fixture,
                                       load_mapping_fixture, pipelined,
-                                      run_tracker, synthetic_matcher_inputs,
-                                      tracker_gaps)
+                                      register_shipped_codebooks, run_tracker,
+                                      synthetic_matcher_inputs, tracker_gaps)
     from dr_slam_torch.config import tum_freiburg3
     from dr_slam_torch.ops import match_cuda
     from dr_slam_torch.slam import map_ops
@@ -572,10 +823,18 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} | {card}", flush=True)
 
-    # --- 1. build ------------------------------------------------------------
-    info = match_cuda.build()
+    # --- 1. build: nvcc and g++ at the same time -------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dr_slam_torch.io import native_loader
+    with ThreadPoolExecutor(2) as pool:
+        loader_build = pool.submit(native_loader.build)
+        info = match_cuda.build()
+        loader_info = loader_build.result()
     print(f"[build] gated_top2_hamming.cu -> {os.path.basename(info['path'])} "
-          f"in {info['seconds']:.1f} s", flush=True)
+          f"in {info['seconds']:.1f} s; frame_loader.cpp -> "
+          f"{os.path.basename(loader_info['path'])} in "
+          f"{loader_info['seconds']:.1f} s", flush=True)
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}")
@@ -605,6 +864,7 @@ def main() -> None:
           f"kernel {json.dumps(split)}", flush=True)
 
     # --- 3. main path ----------------------------------------------------------
+    register_shipped_codebooks()
     cfg = tum_freiburg3()
     fx = load_fixture(dev)
     data = fx.data
@@ -751,15 +1011,20 @@ def main() -> None:
     err = max(err, err7)
     # --- 8. multi-sequence ---------------------------------------------------------
     multi_launches = multi_seq_phase(dev, cfg, card, loop_run)
+    # --- 9. the dataset runner and the streaming node -----------------------------
+    tum_launches, tum_numbers = tum_phase(dev, cfg, card)
+    err = max(err, tum_numbers["max_abs_err"])
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
           f"{system_launches['b']}, loop {loop_launches}, device loop "
-          f"{device_loop_launches}, multi-sequence {multi_launches} (the "
+          f"{device_loop_launches}, multi-sequence {multi_launches}, runner "
+          f"{tum_launches['runner']}, node {tum_launches['node']} (the "
           f"pipelined timing loop's {2 * PIPELINE_FRAMES} not counted)",
           flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
-                      + device_loop_launches + multi_launches)
+                      + device_loop_launches + multi_launches
+                      + sum(tum_launches.values()))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -12,6 +12,7 @@ pins float32 matmuls."""
 
 import functools
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
@@ -29,6 +30,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def to_numpy(x):
+    """A tensor (on any device) or an array-like as a numpy array; reading
+    a device tensor back waits for it."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
 
 
 @functools.lru_cache(maxsize=256)

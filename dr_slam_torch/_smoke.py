@@ -4,18 +4,23 @@ tests: the card's name line, the smoke fixture, the pipelined frame loop,
 matcher inputs at the main path's shapes, the mapping fixture with the
 Tracker run over it, the reloc fixture with the System run over it, the
 loop fixture with the bounds of a loop correction, and the device-loop
-fixture with the DeviceLoopTracker run over the mapping fixture's frames."""
+fixture with the DeviceLoopTracker run over the mapping fixture's frames,
+and the TUM fixture with the dataset runner and a streaming-node session
+over the same frames exported as a TUM sequence."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
+import threading
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dr_slam_torch import to_numpy
 from dr_slam_torch.io.map_io import from_jax_state
 from dr_slam_torch.slam.state import MapState
 from dr_slam_torch.slam.track_step import extract_and_track
@@ -24,6 +29,36 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "smoke_corridor.npz")
 MAPPING_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "data", "mapping_corridor.npz")
+
+
+def register_shipped_codebooks() -> None:
+    """Register the shipped codebooks (data/vocab512.npz, data/vocab.npz),
+    as the `System` does at construction. The fixtures were made by JAX
+    `System`s, which register them; a bare `Tracker` or `DeviceLoopTracker`
+    registers none, and unregistered the port, like the reference, falls
+    back to the seeded random codebook."""
+    from dr_slam_torch.associate import vocabulary as voc
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    for name in ("vocab512.npz", "vocab.npz"):
+        voc.load_vocabulary(os.path.join(data_dir, name))
+
+
+@contextlib.contextmanager
+def shipped_codebooks():
+    """`register_shipped_codebooks` for the block, then the registry as it
+    was, with the codebook caches cleared."""
+    from dr_slam_torch.associate import vocabulary as voc
+
+    saved = dict(voc._trained_signs)
+    register_shipped_codebooks()
+    try:
+        yield
+    finally:
+        voc._trained_signs.clear()
+        voc._trained_signs.update(saved)
+        voc.get_codebook_signs.cache_clear()
+        voc._codebook.cache_clear()
 
 
 def card_line() -> str:
@@ -202,13 +237,15 @@ TRACKER_T_TOL = 3e-3     # max |T_cw - T_cw_jax| entry over the frames
 TRACKER_COUNT_TOL = 0.02  # |n_inliers|, |n_matches|, |n_pts| vs jax, relative
 
 
-def tracker_gaps(run: TrackerRun, data: dict) -> tuple[dict, list]:
-    """The run's distances from the JAX outputs, and the failed checks."""
+def tracker_gaps(run: TrackerRun, data: dict, t0: float = 0.0
+                 ) -> tuple[dict, list]:
+    """The run's distances from the JAX outputs, and the failed checks
+    (frame i has the timestamp t0 + i / 30)."""
     res, st = run.results, run.tracker.map_state
-    dT = [float(np.abs((r.T_cw.cpu().numpy() if isinstance(r.T_cw, torch.Tensor)
-                        else np.asarray(r.T_cw)) - data["T_cw"][i]).max())
+    dT = [float(np.abs(to_numpy(r.T_cw) - data["T_cw"][i]).max())
           for i, r in enumerate(res)]
-    kf_frames = [int(round(ts * 30.0)) for ts, _ in run.tracker.kf_log]
+    kf_frames = [int(round((ts - t0) * 30.0))
+                 for ts, _ in run.tracker.kf_log]
     gaps = dict(
         max_dT=max(dT),
         d_inliers=max(abs(r.n_inliers - int(data["n_inliers"][i]))
@@ -311,12 +348,10 @@ def loop_gaps(data: dict, call: dict, lc, st: MapState, new: MapState,
     accepted loop (sequences exact, T_rel within 1e-3), the surviving
     points and observation table exact, the corrected map within
     LOOP_CORR_TOL. -> (gaps, failed checks)."""
-    def host(x):
-        return x.detach().cpu().numpy()
     fails = []
     loops = [(a, b) for a, b, _ in lc._accepted_loops]
     want = [tuple(int(v) for v in x) for x in data["fire__after__loops_seq"]]
-    gaps = {f: float(np.abs(host(getattr(new, f))
+    gaps = {f: float(np.abs(to_numpy(getattr(new, f))
                             - data[f"fire__out__{f}"]).max())
             for f in LOOP_CORR_TOL}
     gaps["fused"] = int(st.pt_valid.sum()) - int(new.pt_valid.sum())
@@ -330,7 +365,8 @@ def loop_gaps(data: dict, call: dict, lc, st: MapState, new: MapState,
     if gaps["T_rel"] > 1e-3:
         fails.append(f"|dT_rel| {gaps['T_rel']:.2e} > 1e-3")
     for f in ("pt_valid", "kf_mp"):
-        if not np.array_equal(host(getattr(new, f)), data[f"fire__out__{f}"]):
+        if not np.array_equal(to_numpy(getattr(new, f)),
+                              data[f"fire__out__{f}"]):
             fails.append(f"{f} differs from the JAX correction's")
     for f, tol in LOOP_CORR_TOL.items():
         if gaps[f] > tol:
@@ -459,11 +495,7 @@ def system_gaps(run: SystemRun, data: dict, prefix: str) -> tuple[dict, list]:
     unchanged."""
     res = run.results
     st = run.system.tracker.map_state
-
-    def host(T):
-        return T.cpu().numpy() if isinstance(T, torch.Tensor) \
-            else np.asarray(T)
-    dT = [float(np.abs(host(r.T_cw) - data[f"{prefix}__T_cw"][i]).max())
+    dT = [float(np.abs(to_numpy(r.T_cw) - data[f"{prefix}__T_cw"][i]).max())
           for i, r in enumerate(res)]
     gaps = dict(max_dT=max(dT), n_kfs=int(st.n_kfs), n_pts=int(st.n_pts),
                 n_planes=int(st.pl_valid.sum()),
@@ -621,4 +653,200 @@ def device_loop_gaps(run: DeviceLoopRun, data: dict) -> tuple[dict, list]:
     ref = int(data["n_pts"])
     if abs(gaps["n_pts"] - ref) > TRACKER_COUNT_TOL * ref:
         fails.append(f"n_pts {gaps['n_pts']}, JAX {ref}")
+    return gaps, fails
+
+
+# --- the dataset runner and the streaming node --------------------------------
+
+TUM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "tum_corridor.npz")
+TUM_T0 = 1000.0       # export_tum_sequence's first timestamp; 30 frames/s
+NODE_FRAMES = 12      # frames 0-11 go through the streaming node
+
+
+def export_fixture_sequence(export, out_dir: str, mdata: dict, poses,
+                            depth_factor: float) -> str:
+    """The mapping fixture's frames as a TUM sequence, written by `export`
+    (either package's `export_tum_sequence`): gray as float32, depth as
+    d16 / depth_factor in float32, so the PNGs hold the fixture's uint8 and
+    uint16 values exactly."""
+    def render(i):
+        return (mdata["gray"][i].astype(np.float32),
+                mdata["depth"][i].astype(np.float32) / np.float32(depth_factor))
+    return export(out_dir, poses, render, depth_factor=depth_factor)
+
+
+@contextlib.contextmanager
+def track_rgbd_hook(hook):
+    """Patch the port's `System.track_rgbd` for the block: after each frame
+    it calls `hook(result, system)`. Drives the dataset runner and the
+    streaming node unchanged, as the tests' `jax_system_lagged_by_one`
+    drives the JAX ones."""
+    from dr_slam_torch.slam.system import System
+
+    track = System.track_rgbd
+
+    def wrapped(self, *a, **kw):
+        res = track(self, *a, **kw)
+        hook(res, self)
+        return res
+    System.track_rgbd = wrapped
+    try:
+        yield
+    finally:
+        System.track_rgbd = track
+
+
+def node_frames(mdata: dict, depth_factor: float, n: int = NODE_FRAMES):
+    """[(stamp, rgb (H, W, 3) uint8, depth float32 metres)] of fixture frames
+    0..n-1, as a ROS camera driver publishes them."""
+    return [(TUM_T0 + i / 30.0,
+             np.repeat(mdata["gray"][i][..., None], 3, axis=-1),
+             mdata["depth"][i].astype(np.float32) / np.float32(depth_factor))
+            for i in range(n)]
+
+
+def node_session(tp, server, frames, map_path: str | None = None,
+                 resolution: float = 0.05) -> dict:
+    """One camera session against `server` (a SlamServer of either package;
+    `tp` is that package's or the other's transport module, whose
+    CameraClient speaks the same wire format): `server.serve_once()` on a
+    thread of its own, the frames streamed one round trip each, then
+    save_map (if `map_path`), save_occupancy and shutdown. -> dict of the
+    odometry per frame, round-trip ms, the save_map status, the occupancy
+    reply (keyframe odometry, grid, status) and the frames the server
+    tracked. A failure on the server's thread is raised here."""
+    done = {}
+
+    def serve():
+        try:
+            done["n"] = server.serve_once()
+        except BaseException as e:           # noqa: BLE001 (re-raised below)
+            done["error"] = e
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    client = tp.CameraClient(server.address)
+
+    def recv():
+        msg = client.recv()
+        if msg is None:
+            th.join(timeout=60)
+            raise RuntimeError(f"the node closed the session: "
+                               f"{done.get('error')!r}") from done.get("error")
+        return msg
+
+    out = dict(odom=[], ms=[], saved=None, kf_odom=[], grid=None,
+               occ_status=None)
+    try:
+        for stamp, rgb, depth in frames:
+            t0 = time.perf_counter()
+            client.publish_frame(stamp, rgb, depth)
+            topic, _, data = recv()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if topic != tp.TOPIC_ODOM:
+                raise RuntimeError(f"expected odometry, got {topic}: {data}")
+            out["odom"].append(data)
+        if map_path:
+            client.command(cmd="save_map", path=map_path)
+            out["saved"] = recv()[2]
+        client.command(cmd="save_occupancy", resolution=resolution)
+        while True:
+            topic, _, data = recv()
+            if topic == tp.TOPIC_ODOM:
+                out["kf_odom"].append(data)
+            elif topic == tp.TOPIC_OCC:
+                out["grid"] = data
+            elif topic == tp.TOPIC_STATUS:
+                out["occ_status"] = data
+                break
+        client.command(cmd="shutdown")
+        recv()
+    finally:
+        client.close()
+    th.join(timeout=60)
+    if "error" in done:
+        raise RuntimeError("the node failed") from done["error"]
+    out["n_tracked"] = done.get("n")
+    return out
+
+
+def odom_arrays(odom: list) -> dict:
+    """A node session's per-frame odometry as arrays: state codes
+    (1 NOT_INITIALIZED, 2 OK, 3 LOST), keyframe flags, positions and
+    quaternions."""
+    codes = {"NOT_INITIALIZED": 1, "OK": 2, "LOST": 3}
+    return dict(state=np.asarray([codes[o["state"]] for o in odom], np.int32),
+                is_keyframe=np.asarray([o["is_keyframe"] for o in odom]),
+                position=np.asarray([o["position"] for o in odom]),
+                orientation=np.asarray([o["orientation"] for o in odom]))
+
+
+def load_tum_fixture() -> dict:
+    """The TUM fixture (made by scripts/make_torch_tum_fixture.py): the
+    ground-truth poses of the mapping fixture's 24 frames and the JAX
+    package's dataset runner, node session and mesh over them."""
+    return load_npz(TUM_FIXTURE)
+
+
+def read_tum_rows(path: str) -> np.ndarray:
+    """A TUM trajectory file's rows as an (N, 8) float64 array."""
+    with open(path) as f:
+        rows = [[float(v) for v in line.split()] for line in f
+                if line.strip() and not line.startswith("#")]
+    return np.asarray(rows, np.float64).reshape(-1, 8)
+
+
+# Bound of the node's occupancy grid against the JAX node's: the cells
+# whose count differs, over the cells the JAX grid occupies. The points are
+# placed by poses within TRACKER_T_TOL, so a point near a 5 cm cell border
+# may change cells: on the CPU at 640x480, 10 of 299 cells (3.3%), with
+# |dT_cw| 1.0e-3 on the runner and the same point count.
+OCC_CELL_SHARE = 0.1
+
+
+def node_gaps(out: dict, data: dict) -> tuple[dict, list]:
+    """A node session against the JAX node's in the TUM fixture: states and
+    keyframe flags exact, positions within TRACKER_T_TOL, quaternions
+    within 2 * TRACKER_T_TOL (q and -q are one rotation: the sign is
+    aligned with JAX's), every frame
+    tracked, the occupancy reply's keyframe count exact and its grid within
+    OCC_CELL_SHARE. -> (gaps, failed checks)."""
+    got = odom_arrays(out["odom"])
+    fails = []
+    if got["state"].shape != data["node__state"].shape:
+        return {}, [f"{len(out['odom'])} odometry replies, JAX "
+                    f"{len(data['node__state'])}"]
+    q, qj = got["orientation"], data["node__orientation"]
+    q = q * np.where(np.sum(q * qj, -1, keepdims=True) < 0, -1.0, 1.0)
+    grid, gj = out["grid"], data["occ__grid"]
+    diff = int((grid != gj).sum()) if grid is not None and \
+        grid.shape == gj.shape else -1
+    occupied = max(int((gj > 0).sum()), 1)
+    gaps = dict(
+        d_position=float(np.abs(got["position"]
+                                - data["node__position"]).max()),
+        d_orientation=float(np.abs(q - qj).max()),
+        kf_odom=len(out["kf_odom"]),
+        occ_cells_differing=diff, occ_cells_jax=occupied,
+        occ_sum=int(grid.sum()) if grid is not None else None,
+        occ_sum_jax=int(gj.sum()),
+        d_origin=float(np.abs(np.asarray(out["occ_status"]["origin"])
+                              - data["occ__origin"]).max()))
+    for name in ("state", "is_keyframe"):
+        if not np.array_equal(got[name], data[f"node__{name}"]):
+            fails.append(f"{name} {got[name].tolist()}, JAX "
+                         f"{data[f'node__{name}'].tolist()}")
+    if gaps["d_position"] > TRACKER_T_TOL:
+        fails.append(f"positions off by {gaps['d_position']:.2e}")
+    if gaps["d_orientation"] > 2 * TRACKER_T_TOL:
+        fails.append(f"orientations off by {gaps['d_orientation']:.2e}")
+    if out["n_tracked"] != len(out["odom"]):
+        fails.append(f"the node tracked {out['n_tracked']} frames")
+    if gaps["kf_odom"] != int(data["occ__keyframes"]) or \
+            out["occ_status"]["keyframes"] != gaps["kf_odom"]:
+        fails.append(f"occupancy over {gaps['kf_odom']} keyframes, JAX "
+                     f"{int(data['occ__keyframes'])}")
+    if diff < 0 or diff > OCC_CELL_SHARE * occupied:
+        fails.append(f"occupancy grid: {diff} of {occupied} cells differ")
     return gaps, fails

@@ -10,24 +10,20 @@ bf16 codebook with f32 accumulation does. `bow_scores` is DBoW2's L1 score,
 1 - 0.5 |v1 - v2|_1, against all keyframes at once.
 
 The codebook for W words is the one registered with `set_vocabulary` (or
-`load_vocabulary`) for W; else the shipped trained one when
-`data/vocab{W}.npz` or `data/vocab.npz` holds W words, tried in that order
-as the `System`s of both packages register them (the keyframes' cached word
-ids in a map were assigned with it); else the seeded random codebook."""
+`load_vocabulary`) for W, else the seeded random codebook, as in the
+reference. The `System` registers the shipped trained codebook at
+construction (`data/vocab{W}.npz` or `data/vocab.npz`); a bare tracker uses
+whatever is registered. `train_vocabulary` is the reference's binary
+k-means, in numpy, bit for bit."""
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import torch
 
 from dr_slam_torch.ops.orb import bits_to_signs, unpack_bits
-
-_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "data")
-
 
 def _random_codebook_signs(n_words: int, seed: int = 3) -> np.ndarray:
     rng = np.random.RandomState(seed)
@@ -63,19 +59,44 @@ def load_vocabulary(path: str) -> None:
 
 @functools.lru_cache(maxsize=4)
 def get_codebook_signs(n_words: int) -> np.ndarray:
-    """(W, 256) +/-1 codebook for W words: registered, else shipped, else
-    random."""
+    """(W, 256) +/-1 codebook for W words: the registered one, else the
+    seeded random one."""
     if n_words in _trained_signs:
         return _trained_signs[n_words]
-    for name in (f"vocab{n_words}.npz", "vocab.npz"):
-        path = os.path.join(_DATA_DIR, name)
-        if not os.path.exists(path):
-            continue
-        with np.load(path) as data:
-            words = data["words"]
-        if words.shape[0] == n_words:
-            return words_to_signs(words)
     return _random_codebook_signs(n_words)
+
+
+def train_vocabulary(desc: np.ndarray, n_words: int = 4096,
+                     n_iters: int = 8, seed: int = 5) -> np.ndarray:
+    """Binary k-means over packed ORB descriptors -> (W, 8) uint32 words
+    (the role of DBoW2's offline training): centres are per-bit majority
+    votes, assignment is the Hamming argmin as a +/-1 matmul, an empty
+    cluster reseeds on the descriptor farthest from its centre. Host numpy,
+    the reference's expressions in its order, so the words are bit-equal."""
+    desc = np.asarray(desc)
+    bits = np.unpackbits(desc.astype("<u4").view(np.uint8),
+                         bitorder="little").reshape(desc.shape[0], 256)
+    signs = bits.astype(np.float32) * 2.0 - 1.0
+    rng = np.random.RandomState(seed)
+    n = signs.shape[0]
+    centers = signs[rng.choice(n, size=min(n_words, n), replace=False)]
+    if centers.shape[0] < n_words:   # fewer descriptors than words
+        centers = np.concatenate(
+            [centers, _random_codebook_signs(n_words)[centers.shape[0]:]], 0)
+    for _ in range(n_iters):
+        dot = signs @ centers.T                       # (N, W)
+        assign = np.argmax(dot, -1)
+        dist = 0.5 * (256.0 - dot[np.arange(n), assign])
+        for w in range(n_words):
+            m = assign == w
+            if m.any():
+                centers[w] = np.where(signs[m].mean(0) >= 0.0, 1.0, -1.0)
+            else:
+                centers[w] = signs[np.argmax(dist)]
+                dist[np.argmax(dist)] = -1.0
+    words_bits = (centers > 0).astype(np.uint8)
+    packed = np.packbits(words_bits, axis=-1, bitorder="little")
+    return packed.view("<u4").astype(np.uint32)
 
 
 @functools.lru_cache(maxsize=8)

@@ -204,6 +204,14 @@ def rot_to_quat_unnormalized(R):
         idx.shape + (1, 4)))[..., 0, :]
 
 
+def rot_to_quat(R):
+    """(...,3,3) -> (...,4) unit quaternion as (x,y,z,w): the branchless
+    Shepperd construction of `rot_to_quat_unnormalized` (largest pivot, the
+    first on ties), normalised."""
+    q = rot_to_quat_unnormalized(R)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def orthonormalize_rotation(M, n_iters: int = 6):
     """Project a near-rotation onto SO(3) with the fixed-iteration Newton
     polar iteration X <- (X + X^-T)/2 (same as the reference; no SVD)."""

@@ -18,15 +18,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 
 import torch
 
 from dr_slam_torch.ops.orb import bits_to_signs, unpack_bits
+from dr_slam_torch.utils.build import build_library
 
 # Candidate padding rule of the matcher contract (as in the Pallas wrapper):
 # NC must be a multiple of TILE_C, padded with pt_valid = False.
@@ -35,8 +33,6 @@ _SCAN_CHUNK = 4096
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "gated_top2_hamming.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,24 +50,8 @@ def _nvcc() -> str:
 
 def build() -> dict:
     """Compile the kernel (if this source has not been built yet) and return
-    {"path", "seconds", "log"}. The library name carries a hash of the
-    source, so an edited source is rebuilt."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libgated_top2_hamming_{digest}.so")
-    if os.path.exists(lib):
-        return {"path": lib, "seconds": 0.0, "log": "cached"}
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"path": lib, "seconds": time.perf_counter() - t0,
-            "log": proc.stderr}
+    {"path", "seconds", "log"}."""
+    return build_library(_SRC, "gated_top2_hamming", _nvcc(), NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=1)

@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from dr_slam_torch import resolve_device
+from dr_slam_torch import resolve_device, to_numpy
 from dr_slam_torch.associate import vocabulary as voc
 from dr_slam_torch.config import SlamConfig, load_config
 from dr_slam_torch.io import map_io
@@ -106,9 +106,7 @@ class System:
         else:
             res = self.tracker.process_frame(gray, depth, timestamp)
         if gt_R is not None:
-            T = res.T_cw
-            T = T.detach().cpu().numpy() if isinstance(T, torch.Tensor) \
-                else np.asarray(T)
+            T = to_numpy(res.T_cw)
             res.rot_residual_deg = rotation_residual_deg(T[:3, :3],
                                                          np.asarray(gt_R))
             self.metrics.log("rot_residual", frame=self.tracker.frame_id,

@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from dr_slam_torch import resolve_device
+from dr_slam_torch import resolve_device, to_numpy
 from dr_slam_torch.associate import keyframe_db
 from dr_slam_torch.associate.vocabulary import bow_scores, compute_bow, word_ids
 from dr_slam_torch.config import SlamConfig
@@ -91,11 +91,6 @@ def _kf_scalar_bundle(state: MapState, kf_id, prev_kf) -> torch.Tensor:
         torch.stack([kf_id.to(f32), state.n_kfs.to(f32)]),
         map_ops._row(state.kf_pose, kf_id).reshape(-1),
         map_ops._row(state.kf_pose, prev_kf).reshape(-1)])
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
 
 
 @dataclass
@@ -250,12 +245,12 @@ class Tracker:
         """[(ts, T_cw)], each frame recomposed from its reference keyframe's
         current pose (System::SaveTrajectoryTUM, System.cc:379-440); frames
         whose keyframe was culled keep their tracked pose."""
-        kf_pose = _host(self.map_state.kf_pose)
-        kf_seq = _host(self.map_state.kf_seq)
-        kf_valid = _host(self.map_state.kf_valid)
+        kf_pose = to_numpy(self.map_state.kf_pose)
+        kf_seq = to_numpy(self.map_state.kf_seq)
+        kf_valid = to_numpy(self.map_state.kf_valid)
         out = []
         for ts, ref, ref_pose, seq, T in self.traj_rel:
-            T_np = _host(T)
+            T_np = to_numpy(T)
             if ref_pose is None or not kf_valid[ref] or kf_seq[ref] != seq:
                 out.append((ts, T_np))
                 continue
@@ -342,12 +337,12 @@ class Tracker:
         then the state machine."""
         out = track_step(self.map_state, feats, self.T_cw, self.velocity,
                          self.R_cm, self._ref_kf_dev(), self.cfg)
-        b = _host(out.bundle)
+        b = to_numpy(out.bundle)
         n_inliers, n_matches = int(b[16]), int(b[17])
         man_ok, jump = bool(b[18] > 0.5), float(b[19])
         if self._bad_pose(n_inliers, n_matches, jump):
             self.state = TrackState.LOST
-            return TrackingResult(_host(self.T_cw), self.state, n_inliers,
+            return TrackingResult(to_numpy(self.T_cw), self.state, n_inliers,
                                   n_matches, man_ok, False, ts)
         if not self.only_tracking:
             self.map_state = out.new_map_state
@@ -359,7 +354,7 @@ class Tracker:
             feats, out, ts, self.frame_id, n_inliers,
             n_close_tracked=int(b[20]), n_close_untracked=int(b[21]),
             ref_tracked=int(b[22]))
-        return TrackingResult(_host(self.T_cw), self.state, n_inliers,
+        return TrackingResult(to_numpy(self.T_cw), self.state, n_inliers,
                               n_matches, man_ok, is_kf, ts)
 
     # ------------------------------------------------------------------
@@ -435,7 +430,7 @@ class Tracker:
                 self.map_state = map_ops.cull_one_keyframe(self.map_state)
         self.last_kf_frame = frame_id
         with self._span("kf.readback"):
-            b = _host(_kf_scalar_bundle(self.map_state, kf_id, prev_kf))
+            b = to_numpy(_kf_scalar_bundle(self.map_state, kf_id, prev_kf))
         kf_i = int(b[0])
         self._n_kfs_host = int(b[1])
         T_kf = b[2:18].reshape(4, 4).astype(np.float64)
@@ -545,13 +540,14 @@ class Tracker:
         cfg = self.cfg
         st = self.map_state
         bow = compute_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
-        scores = _host(bow_scores(bow, st.kf_bow, st.kf_valid))
+        scores = to_numpy(bow_scores(bow, st.kf_bow, st.kf_valid))
         # group-accumulated shortlist with no minScore floor (the query
         # frame has no covisible neighbours to derive one from)
-        common = _host(keyframe_db.common_word_counts(bow, st.kf_bow,
-                                                      st.kf_valid))
+        common = to_numpy(keyframe_db.common_word_counts(bow, st.kf_bow,
+                                                         st.kf_valid))
         order = keyframe_db.group_candidates(
-            scores, common, _host(_covis_full(st)), _host(st.kf_valid))[:5]
+            scores, common, to_numpy(_covis_full(st)),
+            to_numpy(st.kf_valid))[:5]
         # union with the raw top 3: where scores are near-uniform, group
         # accumulation can drop the nearby keyframe the raw score ranks
         # first; the geometric checks arbitrate
@@ -634,14 +630,14 @@ class Tracker:
                 if self.ref_kf not in self.kf_pose_host:
                     # relocalized into a loaded map: anchor the relative
                     # trajectory bookkeeping on the keyframe as it is
-                    self.kf_pose_host[self.ref_kf] = _host(
+                    self.kf_pose_host[self.ref_kf] = to_numpy(
                         st.kf_pose[self.ref_kf])
                     self.kf_seq_host[self.ref_kf] = int(st.kf_seq[self.ref_kf])
                     self._seq_counter = max(self._seq_counter,
                                             self.kf_seq_host[self.ref_kf] + 1)
                 if bool(st.manhattan_ok):
                     self.R_cm = opt.T_cw[:3, :3] @ st.R_wm
-                return TrackingResult(_host(opt.T_cw), self.state, n_opt,
+                return TrackingResult(to_numpy(opt.T_cw), self.state, n_opt,
                                       int(ref.n_matches), False, False, ts)
         # losing track on a young map (<= 5 keyframes soon after
         # initialization) resets it rather than relocalizing forever
@@ -661,5 +657,5 @@ class Tracker:
             self.kf_odom_host.clear()
             # the map's kf_seq restarts at 0, and the host counter with it
             self._seq_counter = 0
-        return TrackingResult(_host(self.T_cw), TrackState.LOST, 0, 0, False,
-                              False, ts)
+        return TrackingResult(to_numpy(self.T_cw), TrackState.LOST, 0, 0,
+                              False, False, ts)

@@ -21,7 +21,7 @@ from dr_slam_tpu.io import synthetic
 from dr_slam_tpu.io.metrics import ate_rmse
 from dr_slam_torch.slam.device_loop import REC_SIZE, DeviceLoopTracker
 
-from torch_parity import shipped_codebooks_in_jax, small_cfg, to_port
+from torch_parity import shipped_codebooks, small_cfg, to_port
 
 torch.set_num_threads(2)
 
@@ -42,7 +42,7 @@ def runs():
     seq = synthetic.SyntheticSequence(poses, K4=cfg.camera.K4, height=240,
                                       width=320)
     frames = [tuple(np.asarray(x) for x in seq.render(i)) for i in range(N)]
-    with shipped_codebooks_in_jax():
+    with shipped_codebooks():
         jt = JTracker(cfg)
         pt = DeviceLoopTracker(to_port(cfg), device="cpu")
         for i, (g, d) in enumerate(frames):

@@ -7,14 +7,15 @@ dr_slam_torch/data/device_loop_corridor.npz (made by
 scripts/make_torch_device_loop_fixture.py), under the bounds phase 7 holds
 the card to (dr_slam_torch/_smoke.py: `device_loop_gaps`). Observed on the
 CPU: states, keyframes and reference keyframes exact, |dT_cw| 7.1e-4,
-counts within 3."""
+counts within 3. The JAX run had the shipped 4096-word codebook
+registered, so the port's is registered too (`_smoke.shipped_codebooks`)."""
 
 import pytest
 import torch
 
 from dr_slam_torch._smoke import (DEVICE_LOOP_FIXTURE, device_loop_gaps,
                                   expected_launches, load_mapping_fixture,
-                                  load_npz, run_device_loop)
+                                  load_npz, run_device_loop, shipped_codebooks)
 from dr_slam_torch.config import tum_freiburg3
 
 torch.set_num_threads(2)
@@ -24,8 +25,9 @@ torch.set_num_threads(2)
 def tracked():
     data = load_npz(DEVICE_LOOP_FIXTURE)
     order = [int(i) for i in data["frame"]]
-    return run_device_loop(load_mapping_fixture(), order, tum_freiburg3(),
-                           "cpu", capture=True), data
+    with shipped_codebooks():
+        yield run_device_loop(load_mapping_fixture(), order, tum_freiburg3(),
+                              "cpu", capture=True), data
 
 
 def test_device_loop_matches_the_jax_run(tracked):

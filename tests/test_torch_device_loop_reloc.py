@@ -23,7 +23,7 @@ from dr_slam_tpu.io import synthetic
 from dr_slam_tpu.io.metrics import ate_rmse
 from dr_slam_torch.slam.device_loop import DeviceLoopTracker
 
-from torch_parity import shipped_codebooks_in_jax, small_cfg, to_port
+from torch_parity import shipped_codebooks, small_cfg, to_port
 
 torch.set_num_threads(2)
 
@@ -47,7 +47,7 @@ def runs():
     blank = np.zeros((240, 320), np.float32)
     order = (list(range(N)) + [-1] * N_BLANK
              + list(range(BACK, BACK + 6)))
-    with shipped_codebooks_in_jax():
+    with shipped_codebooks():
         jt = JTracker(cfg)
         pt = DeviceLoopTracker(to_port(cfg), device="cpu")
         snap = None

@@ -19,8 +19,8 @@ package.
   LOOP_CORR_TOL of dr_slam_torch/_smoke.py (observed <= 1e-6; the headroom
   is for the GPU, where `chip_smoke.py` phase 6 holds the port to the same
   bounds). The codebook in effect in that run is the shipped vocab512.npz,
-  which the JAX System registered over the trained one; the port's is
-  equal to it.
+  which the JAX System registered over the trained one; the port's, with
+  the shipped codebooks registered, is equal to it.
 - The global BA dispatched after the correction, resolved blocking, against
   the JAX one within LOOP_GBA_TOL (observed 6.3e-4 on poses, 8.6e-3 on one
   point): 4 Gauss-Newton steps of 30 float32 CG iterations over the whole
@@ -46,7 +46,8 @@ from dr_slam_torch.io.map_io import from_jax_state
 from dr_slam_torch.optimize import pose_graph as tpg
 from dr_slam_torch.slam import loop_closing as tlc
 
-from torch_parity import loop_cfg, small_cfg, state_to_port, to_port
+from torch_parity import (loop_cfg, shipped_codebooks, small_cfg,
+                          state_to_port, to_port)
 
 torch.set_num_threads(2)
 
@@ -144,10 +145,13 @@ def fixture():
 
 def test_config_and_codebook(fixture):
     """The fixture's scenario config is loop_small_cfg, and its codebook
-    is the port's for 512 words."""
+    is the port's for 512 words once the shipped codebooks are registered
+    (as the port's System registers them; unregistered, both packages
+    fall back to the seeded random codebook)."""
     assert to_port(loop_cfg()) == loop_small_cfg()
-    np.testing.assert_array_equal(tvoc.get_codebook_signs(512),
-                                  fixture["codebook_signs"])
+    with shipped_codebooks():
+        np.testing.assert_array_equal(tvoc.get_codebook_signs(512),
+                                      fixture["codebook_signs"])
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,10 @@ map exercises too little (duplicate planes and lines, depth holes,
 redundant keyframes), the state is edited in numpy first, the same way for
 both.
 
+Both packages use the shipped codebooks, registered by
+`torch_parity.shipped_codebooks` for the module (the JAX `System` registers
+them too): unregistered, the port takes the seeded random one.
+
 Integer tables, masks, slot allocation and counts must match exactly. Float
 fields agree within 1e-5: the same float32 formulas, with sums taken in
 another order."""
@@ -29,8 +33,9 @@ from dr_slam_torch.associate.vocabulary import compute_bow as t_bow
 from dr_slam_torch.manhattan.bootstrap import find_manhattan as t_manhattan
 from dr_slam_torch.slam import map_ops as tm
 
-from torch_parity import (assert_states_match, feats_to_port, small_cfg,
-                          state_to_port, tensor, to_port)
+from torch_parity import (assert_states_match, feats_to_port,
+                          shipped_codebooks, small_cfg, state_to_port, tensor,
+                          to_port)
 
 torch.set_num_threads(2)
 
@@ -47,27 +52,28 @@ def _copy(st):
 def built():
     from dr_slam_tpu.slam.system import System
 
-    cfg = small_cfg(deferred=False)
-    seq = synthetic.SyntheticSequence(
-        synthetic.corridor_trajectory(N_MAP + 1, step=0.03),
-        K4=cfg.camera.K4, height=240, width=320)
-    tr = System(cfg, enable_loop_closing=False).tracker
-    for i in range(N_MAP):
-        tr.process_frame(*seq.render(i), i / 30.0)
-    assert int(tr.map_state.n_kfs) == 2
-    gray, depth = seq.render(N_MAP)
-    feats = j_extract(jnp.asarray(gray, jnp.float32),
-                      jnp.asarray(depth, jnp.float32), cfg)
-    out = j_track_step(tr.map_state, feats, tr.T_cw, tr.velocity, tr.R_cm,
-                       jnp.asarray(tr.ref_kf), cfg)
-    pm = jm.PlaneMatches(
-        match_idx=out.plane_match, par_idx=out.plane_par,
-        ver_idx=out.plane_ver,
-        obs_world=jax.vmap(lambda p: jm.se3.plane_to_world(out.T_cw, p))(
-            feats.planes.coeffs))
-    bow = j_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
-    return dict(cfg=cfg, tcfg=to_port(cfg), state=out.new_map_state,
-                feats=feats, out=out, pm=pm, bow=bow, ref_kf=tr.ref_kf)
+    with shipped_codebooks():
+        cfg = small_cfg(deferred=False)
+        seq = synthetic.SyntheticSequence(
+            synthetic.corridor_trajectory(N_MAP + 1, step=0.03),
+            K4=cfg.camera.K4, height=240, width=320)
+        tr = System(cfg, enable_loop_closing=False).tracker
+        for i in range(N_MAP):
+            tr.process_frame(*seq.render(i), i / 30.0)
+        assert int(tr.map_state.n_kfs) == 2
+        gray, depth = seq.render(N_MAP)
+        feats = j_extract(jnp.asarray(gray, jnp.float32),
+                          jnp.asarray(depth, jnp.float32), cfg)
+        out = j_track_step(tr.map_state, feats, tr.T_cw, tr.velocity, tr.R_cm,
+                           jnp.asarray(tr.ref_kf), cfg)
+        pm = jm.PlaneMatches(
+            match_idx=out.plane_match, par_idx=out.plane_par,
+            ver_idx=out.plane_ver,
+            obs_world=jax.vmap(lambda p: jm.se3.plane_to_world(out.T_cw, p))(
+                feats.planes.coeffs))
+        bow = j_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
+        yield dict(cfg=cfg, tcfg=to_port(cfg), state=out.new_map_state,
+                   feats=feats, out=out, pm=pm, bow=bow, ref_kf=tr.ref_kf)
 
 
 def _port_pm(pm):

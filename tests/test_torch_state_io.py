@@ -25,7 +25,7 @@ from dr_slam_torch.associate import vocabulary as tvoc
 from dr_slam_torch.io import map_io as tio
 from dr_slam_torch.slam.state import MapState, make_empty_state as tempty
 
-from torch_parity import shipped_codebooks_in_jax
+from torch_parity import shipped_codebooks
 
 torch.set_num_threads(2)
 
@@ -65,9 +65,9 @@ def assert_same_state(port: MapState, ref):
 
 @pytest.fixture
 def system_vocabulary():
-    """The shipped codebooks registered in the JAX package as its `System`
-    registers them (the port falls back to its own copies)."""
-    with shipped_codebooks_in_jax():
+    """The shipped codebooks registered in both packages as their `System`s
+    register them."""
+    with shipped_codebooks():
         yield
 
 

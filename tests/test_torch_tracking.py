@@ -2,8 +2,10 @@
 tracker over the 25-frame corridor of tests/test_tracking_e2e.py, from an
 empty map, in synchronous and in the default deferred mode. Both trackers
 use the shipped 512-word vocabulary (the JAX one through `System`, which
-registers it). After each frame the JAX test waits for the pending
-bundles, so the deferred decision lags by exactly one frame in both.
+registers it; the port's `Tracker` through `torch_parity.shipped_codebooks`:
+unregistered it takes the seeded random codebook). After each frame the JAX
+test waits for the pending bundles, so the deferred decision lags by exactly
+one frame in both.
 
 Per-frame states, keyframe flags, inlier and match counts, the keyframe
 frames and the final map's integer tables must match exactly. Poses agree
@@ -22,7 +24,8 @@ import torch
 from dr_slam_tpu.io import synthetic
 from dr_slam_torch.slam.tracking import Tracker
 
-from torch_parity import assert_states_match, small_cfg, to_port
+from torch_parity import (assert_states_match, shipped_codebooks, small_cfg,
+                          to_port)
 
 torch.set_num_threads(2)
 
@@ -52,26 +55,27 @@ def runs(request):
         height=240, width=320)
     frames = [tuple(np.asarray(x, np.float32) for x in seq.render(i))
               for i in range(N)]
-    jt = System(cfg, enable_loop_closing=False).tracker
-    pt = Tracker(to_port(cfg), device="cpu")
-    jres, pres = [], []
-    for i, (gray, depth) in enumerate(frames):
-        jres.append(jt.process_frame(gray, depth, i / 30.0))
-        for entry in jt._pending:
-            jax.block_until_ready(entry[2].bundle)
-        pres.append(pt.process_frame(gray, depth, i / 30.0))
-    jt.flush()
-    pt.flush()
-    final = (jt.map_state, pt.map_state, jt.corrected_trajectory(),
-             pt.corrected_trajectory(), list(jt.kf_log), list(pt.kf_log))
-    # a black frame: no features, both trackers go LOST
-    black = np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1])
-    jb = jt.process_frame(*black, N / 30.0)
-    pb = pt.process_frame(*black, N / 30.0)
-    jt.flush()
-    pt.flush()
-    return dict(jres=jres, pres=pres, final=final, black=(jb, pb),
-                lost=(jt, pt), next_frame=frames[-1])
+    with shipped_codebooks():
+        jt = System(cfg, enable_loop_closing=False).tracker
+        pt = Tracker(to_port(cfg), device="cpu")
+        jres, pres = [], []
+        for i, (gray, depth) in enumerate(frames):
+            jres.append(jt.process_frame(gray, depth, i / 30.0))
+            for entry in jt._pending:
+                jax.block_until_ready(entry[2].bundle)
+            pres.append(pt.process_frame(gray, depth, i / 30.0))
+        jt.flush()
+        pt.flush()
+        final = (jt.map_state, pt.map_state, jt.corrected_trajectory(),
+                 pt.corrected_trajectory(), list(jt.kf_log), list(pt.kf_log))
+        # a black frame: no features, both trackers go LOST
+        black = np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1])
+        jb = jt.process_frame(*black, N / 30.0)
+        pb = pt.process_frame(*black, N / 30.0)
+        jt.flush()
+        pt.flush()
+        yield dict(jres=jres, pres=pres, final=final, black=(jb, pb),
+                   lost=(jt, pt), next_frame=frames[-1])
 
 
 def test_states_counts_and_keyframes_exact(runs):

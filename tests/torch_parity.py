@@ -57,29 +57,37 @@ def wait_pending(system) -> None:
 
 
 @contextlib.contextmanager
-def shipped_codebooks_in_jax():
-    """Register the shipped codebooks in the JAX package for the block, as
-    its `System` does, then restore its registry. Where nothing is
-    registered the port uses the shipped codebook and the JAX package a
-    seeded random one, so a JAX `DeviceLoopTracker`, which registers none,
-    needs this to use the port's words. A jitted program bakes the
-    codebook in when it is traced, so JAX's caches are cleared on the way
-    in and on the way out."""
+def shipped_codebooks():
+    """Register the shipped codebooks (vocab512.npz, vocab.npz) in both
+    packages for the block, as their `System`s do, then restore both
+    registries. Unregistered, both packages fall back to the same seeded
+    random codebook; the fixtures and the JAX `System` runs these tests
+    compare with use the shipped ones, and a bare tracker or
+    `DeviceLoopTracker` registers none. Both packages' codebook caches are
+    cleared on the way in and on the way out, and so are JAX's jit caches:
+    a jitted program bakes the codebook in when it is traced."""
     import jax
     from dr_slam_tpu.associate import vocabulary as jvoc
+    from dr_slam_torch._smoke import shipped_codebooks as port_codebooks
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     saved = dict(jvoc._trained_signs)
+
+    def clear():
+        jvoc._codebook_signs.cache_clear()
+        jax.clear_caches()
+
+    clear()
     for name in ("vocab512.npz", "vocab.npz"):
         with np.load(os.path.join(root, "dr_slam_tpu", "data", name)) as data:
             jvoc.set_vocabulary(data["words"])
-    jax.clear_caches()
     try:
-        yield
+        with port_codebooks():
+            yield
     finally:
         jvoc._trained_signs.clear()
         jvoc._trained_signs.update(saved)
-        jax.clear_caches()
+        clear()
 
 
 def to_port(cfg: SlamConfig) -> tconfig.SlamConfig:
@@ -160,3 +168,61 @@ def assert_states_match(jst, tst, atol: float, fields=None) -> None:
             np.testing.assert_array_equal(b, a, err_msg=f)
         else:
             np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=f)
+
+
+@contextlib.contextmanager
+def jax_system_lagged_by_one():
+    """Patch the JAX `System.track_rgbd` for the block: after each frame it
+    waits for the pending frames' bundles (`wait_pending`), so the deferred
+    decision lags by exactly one frame as the port's does on the CPU, and it
+    records (result, reference keyframe, system) in the list it yields."""
+    from dr_slam_tpu.slam.system import System
+
+    calls = []
+    track = System.track_rgbd
+
+    def wrapped(self, *a, **kw):
+        res = track(self, *a, **kw)
+        wait_pending(self)
+        calls.append((res, self.tracker.ref_kf, self))
+        return res
+    System.track_rgbd = wrapped
+    try:
+        yield calls
+    finally:
+        System.track_rgbd = track
+
+
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_small_yaml(path) -> str:
+    """small_cfg() as a reference-style YAML file, for the run scripts'
+    --config (both packages' `load_config` read it back as small_cfg())."""
+    cfg = small_cfg()
+    cam = cfg.camera
+    keys = {"Camera.fx": cam.fx, "Camera.fy": cam.fy, "Camera.cx": cam.cx,
+            "Camera.cy": cam.cy, "Camera.width": cam.width,
+            "Camera.height": cam.height, "Camera.bf": cam.bf,
+            "DepthMapFactor": cam.depth_factor,
+            "ORBextractor.nFeatures": cfg.orb.n_features,
+            "ORBextractor.nLevels": cfg.orb.n_levels,
+            "ORBextractor.maxKeypoints": cfg.orb.max_keypoints,
+            "Line.MaxLines": cfg.line.max_lines,
+            "Map.MaxPoints": cfg.map.max_points,
+            "Map.MaxLines": cfg.map.max_lines,
+            "Map.MaxPlanes": cfg.map.max_planes,
+            "Map.MaxKeyFrames": cfg.map.max_keyframes,
+            "Map.VocabWords": cfg.map.vocab_words}
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in keys.items()))
+    return str(path)
