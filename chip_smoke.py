@@ -97,13 +97,37 @@ Phases (any failure exits non-zero, and the result line is not printed):
    bounds, the saved map loadable. Prints decode ms per frame, frames/s and
    ms per round trip.
 
+10. detector, cylinders, viewers: (a) `System(cfg, detector=YOLOX(
+   input_size=640), live_viewer=True, device="cuda")` (YOLOX-s, the
+   seeded random init) over the 24 mapping-fixture frames, fed as phase 9
+   decodes them: states, keyframes and reference keyframes exact against
+   the JAX System in dr_slam_torch/data/detect_corridor.npz (made by
+   scripts/make_torch_detect_fixture.py), T_cw and counts within
+   `tracker_gaps`' bounds, 2 matcher launches per tracked frame and the
+   kernel against its plain version on both of frame 11's launches; at
+   each detector call (keyframes 0, 10 and 22, on frames 0, 11 and 23) the
+   decoded candidates within `CAND_TOL` of JAX's, the detections equal, and
+   `select` on the JAX candidates at a threshold under the random
+   network's scores equal to JAX's. Prints the detector's wall ms per call
+   (median of 20, synchronised), its split into resize, network, decode
+   and select between CUDA events, the host's greedy NMS, the peak memory,
+   the bound, the detector frames beside phase 9's, and cuDNN's error with
+   TF32 off and on. (b) the shipped trained weights at 256 over six
+   synthetic scenes: the JAX test's gate and every box at IoU > 0.9 from
+   JAX's. (c) a cylinder depth map at 640x480: block labels, valid,
+   n_cells and cell masks exact, radius, centre and axis within `CYL_TOL`,
+   also through `extract_frame` with `detect_cylinders`. (d) the live
+   viewer of (a) serves /state.json with the map's counts; where matplotlib
+   is installed, /map.png, `Viewer.render_map` and `draw_frame_overlay`
+   write PNGs.
+
 Phases 3-4 and 6-9 run with the shipped codebooks registered, as the JAX
 runs that made the fixtures had them (a bare Tracker or DeviceLoopTracker
 registers none; the System registers them itself).
 
 The kernel table's `launches` adds the main path's, the tracker's, the two
 System scenarios', the loop phase's, the device loop's, the multi-sequence
-phase's and the runner's and node's.
+phase's, the runner's and node's and the detector System's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -111,6 +135,7 @@ table is one JSON line before it; the last line is the result object."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -148,6 +173,7 @@ REPLACES = "dr_slam_" + "tpu/ops/match_pallas.py:112"
 
 H100_BYTES_PER_S = 3.35e12     # HBM3 rate, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+H100_FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (TF32 off)
 
 
 def _time_ms(fn, reps: int, torch) -> float:
@@ -586,6 +612,30 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
+def _hold_kept(kept: list, path: str, torch, dev) -> float:
+    """The kernel against its plain version on both matcher launches that
+    `path` made on CHECK_FRAME. -> the largest abs error."""
+    from dr_slam_torch.ops import match_cuda
+
+    if len(kept) != 2:
+        fail(f"{path}: {len(kept)} matcher calls kept on frame "
+             f"{CHECK_FRAME}, expected 2")
+    err = 0.0
+    for stage, a in enumerate(kept, 1):
+        out_k = match_cuda.gated_top2_hamming(*a)
+        _sync(torch, dev)
+        out_r = match_cuda.gated_top2_hamming_ref(*a)
+        mism, e = _compare(out_k, out_r, torch)
+        print(f"[kernel] {path} frame {CHECK_FRAME} stage {stage}: "
+              f"K={a[0].shape[0]} NC={a[4].shape[0]} valid={int(a[9].sum())} "
+              f"mismatches={mism} max_abs_err={e}", flush=True)
+        if any(mism.values()):
+            fail(f"kernel disagrees with its plain version ({path} frame "
+                 f"{CHECK_FRAME} stage {stage}): {mism}")
+        err = max(err, e)
+    return err
+
+
 def tum_phase(dev, cfg, card: str) -> tuple[dict, dict]:
     """Phase 9: the mapping fixture's frames exported as a TUM sequence and
     decoded back, scripts/run_tum_torch.py over them, and a streaming-node
@@ -719,7 +769,7 @@ def tum_phase(dev, cfg, card: str) -> tuple[dict, dict]:
                 fails.append(f"plane_meshes: {got} against JAX "
                              f"{int(data[key])} ({key})")
         numbers.update(runner_fps=n / sum(ms) * 1e3, runner_s=seconds,
-                       mesh=(len(v), len(f)))
+                       mesh=(len(v), len(f)), frame_ms=ms)
         for i, r in enumerate(results):
             print(f"[tum] frame {i}: {r.state.name} ref_kf {ref_kf[i]} (jax "
                   f"{int(data['run__ref_kf'][i])}) n_inliers {r.n_inliers} "
@@ -741,24 +791,7 @@ def tum_phase(dev, cfg, card: str) -> tuple[dict, dict]:
             fail("tum runner disagrees with the JAX runner: "
                  + "; ".join(fails))
         # the kernel on the runner's own inputs: both launches of CHECK_FRAME
-        err = 0.0
-        if len(kept) != 2:
-            fail(f"tum runner: {len(kept)} matcher calls kept on frame "
-                 f"{CHECK_FRAME}, expected 2")
-        for stage, a in enumerate(kept, 1):
-            out_k = match_cuda.gated_top2_hamming(*a)
-            _sync(torch, dev)
-            out_r = match_cuda.gated_top2_hamming_ref(*a)
-            mism, e = _compare(out_k, out_r, torch)
-            print(f"[kernel] runner frame {CHECK_FRAME} stage {stage}: "
-                  f"K={a[0].shape[0]} NC={a[4].shape[0]} "
-                  f"valid={int(a[9].sum())} mismatches={mism} "
-                  f"max_abs_err={e}", flush=True)
-            if any(mism.values()):
-                fail(f"kernel disagrees with its plain version (runner frame "
-                     f"{CHECK_FRAME} stage {stage}): {mism}")
-            err = max(err, e)
-        numbers["max_abs_err"] = err
+        numbers["max_abs_err"] = _hold_kept(kept, "runner", torch, dev)
 
         # --- the streaming node ----------------------------------------------
         server = transport.SlamServer(System(cfg, device=dev))
@@ -794,6 +827,336 @@ def tum_phase(dev, cfg, card: str) -> tuple[dict, dict]:
                          f"expected {2 * (NODE_FRAMES - 1)}")
         if fails:
             fail("node disagrees with the JAX node: " + "; ".join(fails))
+    return launches, numbers
+
+
+DETECT_REPS = 20      # timed detector calls, after 2 warm-up calls
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _fetch(port: int, path: str) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def detect_phase(dev, cfg, card: str, runner_ms=None) -> tuple[int, dict]:
+    """Phase 10: the System with YOLOX-s at 640 over the mapping fixture's
+    frames (10a), the shipped trained detector (10b), the cylinders at
+    640x480 (10c) and the viewers (10d), against the JAX runs in the detect
+    fixture. runner_ms: phase 9's per-frame wall ms, to set the keyframe
+    frames beside. -> (matcher launches in 10a, the numbers printed)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dr_slam_torch._smoke import (SYNTH_WEIGHTS, TUM_T0, TrackerRun,
+                                      box_iou, candidate_gaps, cylinder_gaps,
+                                      detection_gaps, detections_numpy,
+                                      load_detect_fixture,
+                                      load_mapping_fixture, synth_gate,
+                                      tracker_gaps, yolox_macs)
+    from dr_slam_torch.frontend.frame import extract_frame
+    from dr_slam_torch.models import yolox
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.ops.cylinders import segment_cylinders
+    from dr_slam_torch.ops.planes import segment_planes
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.system import System
+    from dr_slam_torch.viz.viewer import Viewer, draw_frame_overlay
+
+    cuda = dev.type == "cuda"
+    data, mdata = load_detect_fixture(), load_mapping_fixture()
+    n = len(mdata["gray"])
+    factor = np.float32(cfg.camera.depth_factor)
+    frames = [(torch.from_numpy(mdata["gray"][i].astype(np.float32)).to(dev),
+               torch.from_numpy(mdata["depth"][i].astype(np.float32)
+                                / factor).to(dev)) for i in range(n)]
+    numbers = {}
+
+    # --- 10a: the System with YOLOX-s at 640 on the runner's frames ---------
+    results, ref_kf, ms, per_frame, calls, kept = [], [], [], [], [], []
+
+    class Recording(yolox.YOLOX):
+        def detect(self, rgb):
+            out = super().detect(rgb)
+            calls.append((len(results), rgb, out))
+            return out
+
+    kernel = map_ops.gated_top2_hamming
+
+    def keep(*a):
+        if len(results) == CHECK_FRAME:
+            kept.append(tuple(x.clone() for x in a))
+        return kernel(*a)
+
+    det = Recording(input_size=640, device=dev)
+    system = System(cfg, detector=det, live_viewer=True, device=dev)
+    live = system._live
+    live.every, live.min_period = n, 0.0     # one render: the last frame's
+    match_cuda.gated_top2_hamming.launches = 0
+    map_ops.gated_top2_hamming = keep
+    try:
+        for i, (g, d) in enumerate(frames):
+            before = match_cuda.gated_top2_hamming.launches
+            t0 = time.perf_counter()
+            results.append(system.track_rgbd(g, d, TUM_T0 + i / 30.0))
+            _sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_frame.append(match_cuda.gated_top2_hamming.launches - before)
+            ref_kf.append(system.tracker.ref_kf)
+    finally:
+        map_ops.gated_top2_hamming = kernel
+    launches = match_cuda.gated_top2_hamming.launches
+    live.flush()      # its worker's render competes with the timings below
+    st = system.tracker.map_state
+    counts = {"n_keyframes": int(st.kf_valid.sum()),
+              "n_points": int(st.pt_valid.sum()),
+              "n_planes": int(st.pl_valid.sum())}
+    system.tracker.flush()
+    view = {k[len("run__"):]: v for k, v in data.items()
+            if k.startswith("run__")}
+    gaps, fails = tracker_gaps(TrackerRun(results, system.tracker, per_frame,
+                                          sum(ms) / 1e3, []), view, t0=TUM_T0)
+    if ref_kf != view["ref_kf"].tolist():
+        fails.append(f"ref_kf {ref_kf}, JAX {view['ref_kf'].tolist()}")
+    if [c[0] for c in calls] != data["det__frame"].tolist():
+        fails.append(f"detector called on frames {[c[0] for c in calls]}, "
+                     f"JAX {data['det__frame'].tolist()}")
+    for i, r in enumerate(results):
+        print(f"[detect] frame {i}: {r.state.name} ref_kf {ref_kf[i]} (jax "
+              f"{int(view['ref_kf'][i])}) n_inliers {r.n_inliers} (jax "
+              f"{int(view['n_inliers'][i])}) launches {per_frame[i]} "
+              f"{ms[i]:.1f} ms" + (" detector" if i in data["det__frame"]
+                                   else ""), flush=True)
+    print(f"[detect] System with YOLOX-s at 640 over {n} frames: against the "
+          f"JAX System {json.dumps(gaps)}; matcher launches {launches}",
+          flush=True)
+    want_launches = [0] + [2] * (n - 1)
+    if cuda and per_frame != want_launches:
+        fails.append(f"matcher launches {per_frame}, expected {want_launches}")
+    low_th = [float(x) for x in data["low_th"]]
+    for k, (frame, rgb, out) in enumerate(calls[:len(data["det__frame"])]):
+        cand = yolox.decode(det.heads(det.resize(rgb))).cpu().numpy()
+        cgaps, cfails = candidate_gaps(cand, data["det__cand"][k],
+                                       data["det__class_margin"][k])
+        want = {f: data[f"det__{f}"][k] for f in ("boxes", "scores",
+                                                  "classes", "valid")}
+        dgaps, dfails = detection_gaps(detections_numpy(out), want)
+        # select on the JAX candidates, below the random network's scores
+        low = detections_numpy(yolox.select(
+            torch.from_numpy(data["det__cand"][k]).to(dev), *low_th))
+        lfails = [f"select at {low_th}: {f} differs" for f in low
+                  if not np.array_equal(low[f], data[f"low__{f}"][k])]
+        print(f"[detect] keyframe call {k} (frame {frame}): candidates "
+              f"{json.dumps(cgaps)}; detections {json.dumps(dgaps)}; select "
+              f"at score {low_th[0]:.3f} IoU {low_th[1]:.2f} on the JAX "
+              f"candidates: "
+              f"{int(low['valid'].sum())} kept, "
+              f"{'equal' if not lfails else 'DIFFERENT'}", flush=True)
+        fails += [f"call {k}: {f}" for f in cfails + dfails + lfails]
+    if fails:
+        fail("detector System disagrees with the JAX run: " + "; ".join(fails))
+    numbers["max_abs_err"] = _hold_kept(kept, "detector System", torch, dev)
+
+    # the detector alone on the last keyframe call's input, detect's four
+    # steps one after the other: wall per call (synchronised), the split
+    # between CUDA events in the same calls, the host's NMS pass, the peak
+    # memory, and cuDNN's float32 against TF32
+    rgb = calls[-1][1]
+    reps = DETECT_REPS if cuda else 2
+    for _ in range(2):
+        det.detect(rgb)
+    _sync(torch, dev)
+    nms_ms, wall, greedy = [], [], yolox.greedy_nms
+
+    def timed_nms(*a):
+        t0 = time.perf_counter()
+        keep_ = greedy(*a)
+        nms_ms.append((time.perf_counter() - t0) * 1e3)
+        return keep_
+    split = {p: [] for p in ("resize", "network", "decode", "select")}
+    yolox.greedy_nms = timed_nms
+    try:
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)] \
+                if cuda else []
+            t0 = time.perf_counter()
+            cuda and ev[0].record()
+            img = det.resize(rgb)
+            cuda and ev[1].record()
+            outs = det.heads(img)
+            cuda and ev[2].record()
+            cand_t = yolox.decode(outs)
+            cuda and ev[3].record()
+            yolox.select(cand_t, det.score_th, det.iou_th)
+            cuda and ev[4].record()
+            _sync(torch, dev)
+            wall.append((time.perf_counter() - t0) * 1e3)
+            for p, a, b in zip(split, ev, ev[1:]):
+                split[p].append(a.elapsed_time(b))
+    finally:
+        yolox.greedy_nms = greedy
+    numbers["detect_ms"] = _median(wall)
+    numbers["split"] = {p: _median(v) for p, v in split.items() if v}
+    numbers["nms_host_ms"] = _median(nms_ms)
+    peak = "not measured on the CPU"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        det.detect(rgb)
+        torch.cuda.synchronize()
+        numbers["peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        peak = f"{numbers['peak_mib']:.1f} MiB"
+    macs = yolox_macs(det.params["meta"], det.input_size)
+    n_params = sum(v["w"].size + v["b"].size for k, v in det.params.items()
+                   if k != "meta")
+    nbytes = 4 * (n_params + rgb.numel() + 32 * 7)
+    numbers["bound_ms"] = max(2 * macs / H100_FP32_FLOPS_PER_S,
+                              nbytes / H100_BYTES_PER_S) * 1e3
+    print(f"[detect] YOLOX-s at 640: {numbers['detect_ms']:.2f} ms per call "
+          f"(median of {reps} synchronised calls, host wall) on {card}; split "
+          f"between CUDA events (median, ms) "
+          f"{json.dumps(numbers['split']) if cuda else 'not measured on the CPU'}"
+          f"; greedy NMS on the host {numbers['nms_host_ms']:.3f} ms (after "
+          f"one readback of the 128 x 128 suppression matrix); peak device "
+          f"memory {peak} above what was held; {macs / 1e9:.3f} GMAC "
+          f"({2 * macs / 1e9:.2f} GFLOP), {n_params / 1e6:.3f} M parameters: "
+          f"bound {numbers['bound_ms']:.4f} ms at the float32 peak", flush=True)
+    kf_frames = [int(f) for f in data["det__frame"]]
+    with_det = ", ".join(f"{f}: {ms[f]:.1f}" for f in kf_frames)
+    without = ("phase 9 " + ", ".join(f"{f}: {runner_ms[f]:.1f}"
+                                      for f in kf_frames)
+               if runner_ms else "phase 9 not run")
+    print(f"[detect] wall ms of the frames that ran the detector {with_det} "
+          f"(with it), {without} (without it)", flush=True)
+    if cuda:
+        w = det.net.convs["csp2_b0_2"].weight
+        x = torch.randn(1, w.shape[1], 160, 160, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        ref = F.conv2d(x.double(), w.double(), padding=1)
+        scale = float(ref.abs().max())
+        err32 = float((F.conv2d(x, w, padding=1) - ref).abs().max()) / scale
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            err_tf32 = float((F.conv2d(x, w, padding=1) - ref).abs().max()) \
+                / scale
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        print(f"[detect] cuDNN with allow_tf32=False: a 3x3 convolution "
+              f"{tuple(w.shape)} at 160x160 within {err32:.2e} of float64 "
+              f"(relative to its largest output); with TF32 {err_tf32:.2e}",
+              flush=True)
+        if err32 > 1e-5 or err_tf32 < 10 * err32:
+            fail("cuDNN does not honour allow_tf32=False")
+
+    # --- 10b: the shipped trained weights at 256 ----------------------------
+    det_s = yolox.YOLOX(weights=SYNTH_WEIGHTS, input_size=256, score_th=0.4,
+                        device=dev)
+    preds, worst, fails = [], 1.0, []
+    for i, img in enumerate(data["synth__img"]):
+        got = detections_numpy(det_s.detect(img.astype(np.float32)))
+        pred = got["boxes"][got["valid"]]
+        want = data["synth__boxes"][i][data["synth__valid"][i]]
+        wcls = data["synth__classes"][i][data["synth__valid"][i]]
+        preds.append(pred)
+        if len(pred) != len(want):
+            fails.append(f"image {i}: {len(pred)} boxes, JAX {len(want)}")
+        for p, c in zip(pred, got["classes"][got["valid"]]):
+            best = max((box_iou(p, q) for q, qc in zip(want, wcls) if qc == c),
+                       default=0.0)
+            worst = min(worst, best)
+    gate = synth_gate(preds, data["synth__gt"], data["synth__n"])
+    gate_jax = synth_gate([data["synth__boxes"][i][data["synth__valid"][i]]
+                           for i in range(len(preds))],
+                          data["synth__gt"], data["synth__n"])
+    print(f"[detect] yolox_synth.npz at 256 over {len(preds)} scenes: gate "
+          f"{json.dumps(gate)} (JAX {json.dumps(gate_jax)}); every port box "
+          f"at IoU >= {worst:.4f} from its JAX counterpart", flush=True)
+    if not gate["ok"] or worst <= 0.9:
+        fails.append(f"gate {gate}, worst IoU to JAX {worst}")
+    if fails:
+        fail("trained detector: " + "; ".join(fails))
+
+    # --- 10c: cylinders at 640x480 ------------------------------------------
+    K4 = cfg.camera.K4
+    depth = torch.from_numpy(data["cyl__depth"]).to(dev)
+    planes = segment_planes(depth, K4)
+    label = planes.block_label.cpu().numpy()
+    (seg, cyl_ms) = _stream_ms(torch, dev, lambda: segment_cylinders(
+        depth, K4, planes.block_label))
+    cgaps, fails = cylinder_gaps(seg, data, "cyl")
+    if not np.array_equal(label, data["cyl__block_label"]):
+        fails.append(f"block_label differs in "
+                     f"{int((label != data['cyl__block_label']).sum())} cells")
+    ccfg = cfg.replace(plane=dataclasses.replace(cfg.plane,
+                                                 detect_cylinders=True))
+    feats = extract_frame(torch.from_numpy(data["cyl__gray"]).to(dev), depth,
+                          ccfg, dev)
+    fgaps, ffails = cylinder_gaps(feats.cylinders, data, "cylf")
+    print(f"[cylinders] 640x480, radius {data['cyl__scene'][2]:.2f} m at "
+          f"{data['cyl__scene'][1]:.2f} m: segment_cylinders "
+          f"{json.dumps(cgaps)} (JAX valid "
+          f"{data['cyl__valid'].tolist()}, n_cells "
+          f"{data['cyl__n_cells'].tolist()}, radius "
+          f"{np.round(data['cyl__radius'], 4).tolist()}), {cyl_ms:.2f} ms "
+          f"{'between CUDA events' if cuda else 'wall'}; extract_frame with "
+          f"detect_cylinders {json.dumps(fgaps)}", flush=True)
+    if fails + ffails:
+        fail("cylinders disagree with the JAX ones: "
+             + "; ".join(fails + ["extract_frame: " + f for f in ffails]))
+
+    # --- 10d: the viewers ----------------------------------------------------
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    try:
+        code, body = _fetch(live.port, "/state.json")
+        served = json.loads(body)
+        fails = [] if code == 200 and served.get("frame") == n else \
+            [f"/state.json {code} {served}"]
+        fails += [f"/state.json {k} {served.get(k)}, the map {v}"
+                  for k, v in counts.items() if served.get(k) != v]
+        code, png = _fetch(live.port, "/map.png")
+        if has_mpl:
+            if code != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or len(png) < 5000:
+                fails.append(f"/map.png {code}, {len(png)} bytes")
+            with tempfile.TemporaryDirectory() as tmp:
+                Viewer(system).render_map(os.path.join(tmp, "map.png"))
+                g, d = frames[-1]
+                draw_frame_overlay(g, extract_frame(g, d, cfg, dev),
+                                   os.path.join(tmp, "overlay.png"),
+                                   detections=system.last_detections,
+                                   plane_block=cfg.plane.block)
+                sizes = {f: os.path.getsize(os.path.join(tmp, f))
+                         for f in ("map.png", "overlay.png")}
+            fails += [f"{f}: {b} bytes" for f, b in sizes.items() if b < 10000]
+            print(f"[viewer] /state.json {json.dumps(served)}; /map.png "
+                  f"{len(png)} bytes; render_map and draw_frame_overlay "
+                  f"{json.dumps(sizes)} bytes", flush=True)
+        else:
+            if code != 404:
+                fails.append(f"/map.png {code} without a renderer")
+            print(f"[viewer] /state.json {json.dumps(served)}; matplotlib is "
+                  "not installed here (importlib.util.find_spec), so "
+                  "render_map, draw_frame_overlay and /map.png were not run "
+                  "(the live viewer's worker reports the render's "
+                  "ImportError on stderr and goes on serving; /map.png "
+                  "answers 404)", flush=True)
+    finally:
+        live.close()
+    if fails:
+        fail("viewers: " + "; ".join(fails))
     return launches, numbers
 
 
@@ -1014,17 +1377,21 @@ def main() -> None:
     # --- 9. the dataset runner and the streaming node -----------------------------
     tum_launches, tum_numbers = tum_phase(dev, cfg, card)
     err = max(err, tum_numbers["max_abs_err"])
+    # --- 10. the detector, the cylinders and the viewers ---------------------
+    detect_launches, detect_numbers = detect_phase(dev, cfg, card,
+                                                   tum_numbers["frame_ms"])
+    err = max(err, detect_numbers["max_abs_err"])
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
           f"{system_launches['b']}, loop {loop_launches}, device loop "
           f"{device_loop_launches}, multi-sequence {multi_launches}, runner "
-          f"{tum_launches['runner']}, node {tum_launches['node']} (the "
-          f"pipelined timing loop's {2 * PIPELINE_FRAMES} not counted)",
-          flush=True)
+          f"{tum_launches['runner']}, node {tum_launches['node']}, detector "
+          f"System {detect_launches} (the pipelined timing loop's "
+          f"{2 * PIPELINE_FRAMES} not counted)", flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
                       + device_loop_launches + multi_launches
-                      + sum(tum_launches.values()))
+                      + sum(tum_launches.values()) + detect_launches)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -850,3 +850,150 @@ def node_gaps(out: dict, data: dict) -> tuple[dict, list]:
     if diff < 0 or diff > OCC_CELL_SHARE * occupied:
         fails.append(f"occupancy grid: {diff} of {occupied} cells differ")
     return gaps, fails
+
+
+# --- the detector, the cylinders and the viewers (phase 10) ------------------
+
+DETECT_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "detect_corridor.npz")
+SYNTH_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "yolox_synth.npz")
+# Bound of the port's decoded candidates against the JAX ones: |d| <=
+# CAND_TOL * max(|jax|, 1) in x1, y1, x2, y2 and score, the class equal
+# wherever the JAX best class leads the second by CAND_TOL or more.
+# Observed on the CPU at 640 with the random YOLOX-s: 3.5e-7 (float32
+# convolutions summed in another order); a detection's box and score are
+# held to the same bound.
+CAND_TOL = 1e-4
+# Bound of the cylinders' radius, centre and unit axis against the JAX ones
+# (valid slots). The cells' normals come from a closed-form float32
+# eigensolver that is ill-conditioned on cells whose two small eigenvalues
+# are close; on the CPU the golden cells agree to 7e-7 and a depth render
+# at 320x240 to 3.5e-3.
+CYL_TOL = 1e-2
+
+
+def load_detect_fixture() -> dict:
+    """The detect fixture (made by scripts/make_torch_detect_fixture.py):
+    the JAX System with YOLOX-s over the mapping fixture's frames, the
+    trained weights over six synthetic scenes, and a cylinder depth map."""
+    return load_npz(DETECT_FIXTURE)
+
+
+def box_iou(a, b) -> float:
+    x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+    x2, y2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(x2 - x1, 0) * max(y2 - y1, 0)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) \
+        - inter
+    return inter / max(union, 1e-6)
+
+
+def candidate_gaps(cand: np.ndarray, want: np.ndarray, margin: np.ndarray
+                   ) -> tuple[dict, list]:
+    """Decoded candidates (M, 6) against the JAX ones under CAND_TOL."""
+    rel = np.abs(cand[:, :5] - want[:, :5]) / np.maximum(np.abs(want[:, :5]),
+                                                         1.0)
+    flipped = cand[:, 5] != want[:, 5]
+    gaps = dict(max_rel=float(rel.max()), class_flips=int(flipped.sum()),
+                class_flips_near_tie=int((flipped & (margin < CAND_TOL)).sum()))
+    fails = []
+    if cand.shape != want.shape:
+        return gaps, [f"candidates {cand.shape}, JAX {want.shape}"]
+    if gaps["max_rel"] > CAND_TOL:
+        fails.append(f"candidates off by {gaps['max_rel']:.2e} (relative)")
+    if gaps["class_flips"] != gaps["class_flips_near_tie"]:
+        fails.append(f"{gaps['class_flips'] - gaps['class_flips_near_tie']} "
+                     "candidates changed class away from a near-tie")
+    return gaps, fails
+
+
+def detection_gaps(det: dict, want: dict) -> tuple[dict, list]:
+    """Valid detections against the JAX ones: the same count; each JAX
+    detection matched by a port detection of its class with box and score
+    within CAND_TOL (relative to max(|x|, 1)); a detection may change its
+    place only with one whose JAX score is within CAND_TOL of its own."""
+    n, nj = int(det["valid"].sum()), int(want["valid"].sum())
+    fails = [] if n == nj else [f"{n} valid detections, JAX {nj}"]
+    worst, free = 0.0, list(range(n))
+    for i in range(min(n, nj)):
+        gap = [max(np.abs(det["boxes"][j] - want["boxes"][i]).max()
+                   / max(np.abs(want["boxes"][i]).max(), 1.0),
+                   abs(det["scores"][j] - want["scores"][i]))
+               if det["classes"][j] == want["classes"][i] else np.inf
+               for j in free]
+        k = int(np.argmin(gap))
+        j = free.pop(k)
+        worst = max(worst, float(gap[k]))
+        if gap[k] > CAND_TOL:
+            fails.append(f"JAX detection {i} has no match within {CAND_TOL}")
+        elif j != i and abs(want["scores"][min(j, nj - 1)]
+                            - want["scores"][i]) > CAND_TOL:
+            fails.append(f"JAX detection {i} moved to place {j}")
+    return dict(valid=n, valid_jax=nj, max_gap=worst), fails
+
+
+def detections_numpy(d) -> dict:
+    return {k: to_numpy(getattr(d, k))
+            for k in ("boxes", "scores", "classes", "valid")}
+
+
+def synth_gate(preds: list, gt: np.ndarray, n_gt: np.ndarray) -> dict:
+    """tests/test_yolox_detect.py's gate over a few scenes: every
+    ground-truth box found at IoU > 0.4 in at least 80% of cases, at most 2
+    extra boxes per image. preds: per image the (k, 4) valid boxes."""
+    hits = total = extras = 0
+    for pred, boxes, n in zip(preds, gt, n_gt):
+        total += int(n)
+        hits += sum(any(box_iou(g, p) > 0.4 for p in pred) for g in boxes[:n])
+        extras += max(len(pred) - int(n), 0)
+    return dict(hits=hits, total=total, extras=extras,
+                ok=hits / total >= 0.8 and extras <= 2 * len(preds))
+
+
+CYL_FIELDS = ("axis", "center", "radius", "mse", "n_cells", "valid",
+              "cell_mask")
+
+
+def cylinder_gaps(seg, data: dict, prefix: str) -> tuple[dict, list]:
+    """A CylinderSegmentation against the JAX one: valid and cell_mask
+    exact, and the valid slots' n_cells exact with their radius, centre and
+    axis within CYL_TOL. A slot that fails its gates reports the count of a
+    rejected hypothesis over the cells left (in a depth render, mostly the
+    ill-conditioned silhouette cells), which the order of float32 sums
+    moves: the port's CPU run counts 60 or 56 there with 4 or 2 threads,
+    so those counts are printed, not held."""
+    got = {k: to_numpy(getattr(seg, k)) for k in CYL_FIELDS}
+    want = {k: data[f"{prefix}__{k}"] for k in CYL_FIELDS}
+    if not np.array_equal(got["valid"], want["valid"]):
+        return {"valid": got["valid"].tolist()}, [
+            f"valid {got['valid'].tolist()}, JAX {want['valid'].tolist()}"]
+    ok = want["valid"]
+    gaps = {k: float(np.abs(got[k][ok] - want[k][ok]).max()) if ok.any()
+            else 0.0 for k in ("axis", "center", "radius")}
+    gaps.update(valid=got["valid"].tolist(), n_cells=got["n_cells"].tolist(),
+                cells=int(got["cell_mask"].sum()))
+    fails = [f"{k} differs from JAX's" for k, a, b in (
+        ("cell_mask", got["cell_mask"], want["cell_mask"]),
+        ("valid slots' n_cells", got["n_cells"][ok], want["n_cells"][ok]))
+        if not np.array_equal(a, b)]
+    fails += [f"{k} off by {gaps[k]:.2e}" for k in ("axis", "center",
+                                                     "radius")
+              if gaps[k] > CYL_TOL]
+    return gaps, fails
+
+
+def yolox_macs(meta: dict, size: int) -> int:
+    """Multiply-adds of one YOLOXNet forward at size x size, from the
+    convolutions' shapes (each output pixel of a c_in -> c_out k x k
+    convolution costs c_in * c_out * k * k)."""
+    from dr_slam_torch.models.yolox import _layout
+
+    stride = {"stem": 2, "down1": 4, "csp1": 4, "down2": 8, "csp2": 8,
+              "down3": 16, "csp3": 16, "down4": 32, "spp": 32, "csp4": 32,
+              "lat2": 32, "fpn2": 16, "lat1": 16, "fpn1": 8, "pan1": 16,
+              "pan1c": 16, "pan2": 32, "pan2c": 32, "head0": 8, "head1": 16,
+              "head2": 32}
+    return sum((size // stride[name.split(".")[0]]) ** 2 * c_in * c_out * k * k
+               for name, c_in, c_out, k in _layout(meta["widths"],
+                                                   meta["depths"]))

@@ -88,7 +88,7 @@ class PlaneConfig:
     mse_factor: float = 2.5e-3     # planarity MSE gate: (factor * z^2)^2
     max_depth: float = 5.0
     cloud_points: int = 256        # stored per-plane sample cloud size
-    detect_cylinders: bool = False  # the port's front-end has no cylinders
+    detect_cylinders: bool = False
     max_cylinders: int = 3
 
 

@@ -1,8 +1,9 @@
 """Per-frame front-end: ORB keypoints, depth at keypoints, surface normals,
 plane segmentation and line features of one RGB-D frame.
 
-Counterpart of the JAX package's `frontend/frame.py` with `detect_cylinders`
-off. Depth sampling at keypoints mirrors ComputeStereoFromRGBD
+Counterpart of the JAX package's `frontend/frame.py`, with the CAPE
+cylinders (`ops/cylinders.py`) when `plane.detect_cylinders` is set (off by
+default, as in the reference). Depth sampling at keypoints mirrors ComputeStereoFromRGBD
 (Frame.cc:893): uR = u - bf/z where depth is valid, -1 otherwise."""
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from dr_slam_torch import resolve_device
 from dr_slam_torch.config import SlamConfig
+from dr_slam_torch.ops import cylinders as cylinder_ops
 from dr_slam_torch.ops import lines as line_ops
 from dr_slam_torch.ops import normals as normal_ops
 from dr_slam_torch.ops import orb as orb_ops
@@ -29,7 +31,7 @@ class FrameFeatures(NamedTuple):
     normals_valid: torch.Tensor    # (Nn,)
     planes: plane_ops.PlaneSegmentation
     lines: line_ops.LineFeatures
-    cylinders: object = None       # not produced by the port
+    cylinders: object = None       # CylinderSegmentation when enabled
 
 
 def _sample_depth(depth: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -82,10 +84,6 @@ def extract_frame(gray, depth, cfg: SlamConfig, device=None) -> FrameFeatures:
 def _extract_frame(gray, depth, cam, orb, plane, line) -> FrameFeatures:
     """gray and depth as `ingest` returns them: float32 tensors on one
     device."""
-    if plane.detect_cylinders:
-        raise NotImplementedError(
-            "cylinder detection is not ported; set plane.detect_cylinders "
-            "to False")
     K4 = cam.K4
     kp = orb_ops.extract_orb(
         gray, n_features=orb.n_features, n_levels=orb.n_levels,
@@ -121,7 +119,14 @@ def _extract_frame(gray, depth, cam, orb, plane, line) -> FrameFeatures:
         grad_threshold=line.grad_threshold,
         min_length=line.min_length, n_samples=line.n_samples)
 
+    cyl = None
+    if plane.detect_cylinders:
+        cyl = cylinder_ops.segment_cylinders(
+            depth, K4, seg.block_label, block=plane.block,
+            max_cylinders=plane.max_cylinders, mse_factor=plane.mse_factor,
+            max_depth=plane.max_depth)
+
     return FrameFeatures(kp=kp, kp_depth=d, kp_ur=ur, kp_xyz=xyz,
                          normals=nrm.reshape(-1, 3),
                          normals_valid=nrm_ok.reshape(-1),
-                         planes=seg, lines=lf)
+                         planes=seg, lines=lf, cylinders=cyl)

@@ -9,8 +9,10 @@ keyframe, with the global BA that a correction starts running on a side
 CUDA stream until a later keyframe merges it.
 
 `System(cfg, device=...)` runs on cuda unless `device="cpu"` is passed, and
-raises without a GPU. The viewer, the live viewer and the object detector
-are not ported (ROADMAP.md queue 1 item 12): asking for one raises."""
+raises without a GPU. An object detector (`models.yolox.YOLOX`, or any
+object with `.detect(rgb)`) runs at each keyframe event for the 2D overlay,
+never in the pose math; the offline viewer (`viz/viewer.py`) and the live
+browser viewer (`viz/live.py`) attach on request."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from dr_slam_torch import resolve_device, to_numpy
 from dr_slam_torch.associate import vocabulary as voc
 from dr_slam_torch.config import SlamConfig, load_config
+from dr_slam_torch.frontend.frame import extract_frame
 from dr_slam_torch.io import map_io
 from dr_slam_torch.io.metrics import MetricsLogger
 from dr_slam_torch.io.trajectory import (save_keyframe_trajectory_tum,
@@ -30,6 +33,8 @@ from dr_slam_torch.io.trajectory import (save_keyframe_trajectory_tum,
 from dr_slam_torch.slam.loop_closing import LoopCloser
 from dr_slam_torch.slam.tracking import Tracker, TrackState
 from dr_slam_torch.utils.profiling import PROFILER, stage_span
+from dr_slam_torch.viz.live import LiveViewer
+from dr_slam_torch.viz.viewer import Viewer
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
@@ -43,12 +48,6 @@ def rotation_residual_deg(R_est: np.ndarray, R_gt: np.ndarray) -> float:
     return float(np.degrees(np.arccos(np.clip(0.5 * (tr - 1.0), -1.0, 1.0))))
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to dr_slam_torch yet (ROADMAP.md queue 1 "
-        "item 12)")
-
-
 class System:
     """DR-SLAM system facade on PyTorch."""
 
@@ -57,23 +56,33 @@ class System:
                  enable_loop_closing: bool = True, detector=None,
                  live_viewer: bool = False, live_viewer_port: int = 0,
                  device=None):
+        """detector: an object with .detect(rgb) -> Detections (e.g.
+        models.yolox.YOLOX). The reference runs YOLOX per frame for the 2D
+        overlay only (Frame::ExtractObject -> FrameDrawer::DrawObjects,
+        src/Frame.cc:1330, src/FrameDrawer.cc:219); here it runs at each
+        keyframe event, on the tracking thread, and the latest detections
+        feed the viewers' overlay."""
         if isinstance(config, str):
             config = load_config(config)
         self.cfg = config or SlamConfig()
-        if use_viewer or self.cfg.viewer.use_viewer:
-            raise _not_ported("the viewer")
-        if live_viewer:
-            raise _not_ported("the live viewer")
-        if detector is not None:
-            raise _not_ported("the object detector")
         self.device = resolve_device(device)
         self._load_default_vocabulary()
+        self.detector = detector
+        self.last_detections = None
         self.metrics = MetricsLogger(metrics_path)
         self.tracker = Tracker(self.cfg, metrics=self.metrics,
                                device=self.device)
         self.only_tracking = False
         self.enable_loop_closing = enable_loop_closing
         self._loop_closer = None
+        self._viewer = None
+        if use_viewer or self.cfg.viewer.use_viewer:
+            self._viewer = Viewer(self)
+        self._live = None
+        if live_viewer:
+            # the browser-stream live viewer (the reference's Pangolin
+            # window, src/Viewer.cc:43, on a headless host)
+            self._live = LiveViewer(self, port=live_viewer_port)
 
     def _load_default_vocabulary(self):
         """Register the shipped trained codebook for the config's word count
@@ -111,8 +120,22 @@ class System:
                                                          np.asarray(gt_R))
             self.metrics.log("rot_residual", frame=self.tracker.frame_id,
                              deg=res.rot_residual_deg)
-        if self.tracker.consume_kf_event() and self.enable_loop_closing:
-            self._run_loop_closing()
+        if self.tracker.consume_kf_event():
+            if self.detector is not None:
+                g = torch.as_tensor(gray, dtype=torch.float32,
+                                    device=self.device)
+                self.last_detections = self.detector.detect(
+                    torch.stack([g, g, g], -1))
+            if self.enable_loop_closing:
+                self._run_loop_closing()
+        if self._viewer is not None:
+            self._viewer.update(res)
+        if self._live is not None:
+            cfg, dev = self.cfg, self.device
+            self._live.update(
+                res, gray=gray,
+                feats_fn=lambda: extract_frame(gray, depth, cfg, dev),
+                detections=self.last_detections)
         return res
 
     def _run_loop_closing(self):

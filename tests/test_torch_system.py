@@ -221,7 +221,12 @@ def test_system_needs_a_card_or_cpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TSystem(cfg)
-    for kw in ({"use_viewer": True}, {"live_viewer": True},
-               {"detector": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            TSystem(cfg, device="cpu", **kw)
+    # the viewer, the live viewer and a detector attach (they raised before
+    # they were ported)
+    sys_ = TSystem(cfg, device="cpu", use_viewer=True, live_viewer=True,
+                   detector=object())
+    try:
+        assert sys_._viewer is not None and sys_.detector is not None
+        assert sys_._live.port > 0
+    finally:
+        sys_._live.close()
