@@ -120,6 +120,30 @@ Phases (any failure exits non-zero, and the result line is not printed):
    viewer of (a) serves /state.json with the map's counts; where matplotlib
    is installed, /map.png, `Viewer.render_map` and `draw_frame_overlay`
    write PNGs.
+11. synthetic renderer, run script, sharded solves, trainer: (a) the port's
+   `render_frame` on the card over the 24 corridor poses of
+   mapping_corridor.npz and the two scenes of
+   dr_slam_torch/data/synthetic_fixture.npz (made by
+   scripts/make_torch_synthetic_fixture.py; office clutter and the small
+   room, quadratic depth noise from PRNGKey(7)), quantised as the fixtures
+   are: hit masks exact, depth within one uint16 step, the share of gray
+   pixels off by more than one level under GRAY_OFF_SHARE; ms per rendered
+   frame. (b) scripts/run_synthetic_torch.py's `main` with --frames 24:
+   no frame LOST, ATE under 0.05 m and within 2x + 5 mm of the JAX run's,
+   2 matcher launches per tracked frame, the kernel against its plain
+   version on both of frame 11's launches; frames/s. (c)
+   `synthetic_map_state` at tests/test_backend.py's realistic capacity
+   (240 keyframes x 512 slots) against the JAX state's checksums, then
+   `bundle_adjust` and `sharded_bundle_adjust` on meshes of 1 and 4
+   entries of the one card (2 GN x 8 CG): 1 shard bit-equal, 4 within
+   SHARD_TOL, the pose error down below 0.7 of its start; host dispatch
+   and device ms of each; `sharded_place_scores` over 4 shards exact with
+   keyframe 5 first for query 5; `batched_frontend` on 4 frames equal to
+   4 `extract_orb` calls; with more than one card, the mesh of real cards
+   too (printed only). (d) scripts/train_yolox_torch.py: the first
+   batch's loss and gradient norm against the JAX trainer's, then 20
+   steps within LOSS_TOL0 + LOSS_TOL_STEP per step of the JAX losses; ms
+   per step split into the host-side batch and the device step.
 
 Phases 3-4 and 6-9 run with the shipped codebooks registered, as the JAX
 runs that made the fixtures had them (a bare Tracker or DeviceLoopTracker
@@ -127,7 +151,8 @@ registers none; the System registers them itself).
 
 The kernel table's `launches` adds the main path's, the tracker's, the two
 System scenarios', the loop phase's, the device loop's, the multi-sequence
-phase's, the runner's and node's and the detector System's.
+phase's, the runner's and node's, the detector System's and the synthetic
+run script's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -1160,6 +1185,331 @@ def detect_phase(dev, cfg, card: str, runner_ms=None) -> tuple[int, dict]:
     return launches, numbers
 
 
+# Phase 11 bounds, written before the first run on the card. Gray: the
+# renderer fuses the texture hash's first product as XLA does and rounds
+# sin from float64, so a quantised pixel should differ from the JAX
+# render's by more than one grey level only where the card's float32
+# sin/cos or a cell edge rounds the other way.
+GRAY_OFF_SHARE = 0.005    # share of pixels with |gray8 - jax| > 1
+SYNTH_ATE_MAX = 0.05      # run_synthetic's own sanity bound (m)
+SHARD_TOL = 2e-3          # 4 shards against 1 (tests/test_backend.py)
+LOSS_TOL0 = 1e-5          # first-batch loss, relative
+GRAD_NORM_TOL = 1e-4      # its gradient's global norm, relative
+LOSS_TOL_STEP = 1e-4      # + this much relative per trained step
+
+
+def _events_ms(torch, dev, fn):
+    """(fn's result, host ms to return, device ms between CUDA events)."""
+    _sync(torch, dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, ms
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    b.synchronize()
+    return out, host, a.elapsed_time(b)
+
+
+def synthetic_phase(dev, cfg, card: str) -> tuple[int, dict]:
+    """Phase 11: the renderer against the JAX renders, the run script, the
+    sharded solves and place recognition at realistic capacity, the
+    batched front-end, and the detector trainer against the JAX trainer.
+    -> (matcher launches of the run script, the numbers printed)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dr_slam_torch import _smoke, config
+    from dr_slam_torch.associate.keyframe_db import common_word_counts
+    from dr_slam_torch.associate.vocabulary import bow_scores
+    from dr_slam_torch.io import synthetic
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.ops.orb import extract_orb
+    from dr_slam_torch.optimize.global_ba import (bundle_adjust,
+                                                  problem_from_state)
+    from dr_slam_torch.parallel import sharded_ba, sharded_place
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.utils.prng import PRNGKey
+
+    fx = _smoke.load_synth_fixture()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    numbers, fails = {}, []
+    factor = cfg.camera.depth_factor
+    K4 = cfg.camera.K4
+
+    # --- (a) the renderer ----------------------------------------------------
+    mdata = _smoke.load_mapping_fixture()
+    planes = torch.from_numpy(synthetic.BoxRoom().planes()).to(dev)
+    poses = synthetic.corridor_trajectory(len(mdata["gray"]))
+    renders = [("corridor", poses[i], planes, None, None, mdata["gray"][i],
+                mdata["depth"][i]) for i in range(len(poses))]
+    for name, room, traj, boxes in _smoke.synthetic_scenes(synthetic):
+        renders.append((name, traj[_smoke.SYNTH_FRAME],
+                        torch.from_numpy(room.planes()).to(dev),
+                        torch.from_numpy(boxes).to(dev),
+                        PRNGKey(_smoke.SYNTH_FRAME), fx[f"{name}__gray"],
+                        fx[f"{name}__depth"]))
+    render_ms, off, hit_bad, depth_worst, corridor = [], {}, [], 0, []
+    for name, T, pl, boxes, key, want_g, want_d in renders:
+        T = torch.from_numpy(T).to(dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        g, d = synthetic.render_frame(T, pl, K4, 480, 640,
+                                      depth_noise_key=key, boxes=boxes,
+                                      quadratic_noise=key is not None)
+        _sync(torch, dev)
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        if name == "corridor":
+            corridor.append(g)
+        g8, d16 = _smoke.quantize(g, d, factor)
+        if not np.array_equal(d16 > 0, want_d > 0):
+            hit_bad.append(name)
+        depth_worst = max(depth_worst, int(np.abs(
+            d16.astype(np.int64) - want_d).max()))
+        share = float((np.abs(g8.astype(np.int64) - want_g) > 1).mean())
+        off[name] = max(off.get(name, 0.0), share)
+    numbers["render_ms"] = float(np.median(render_ms[1:]))
+    print(f"[synthetic] renderer: {len(renders)} frames at 640x480 (the 24 "
+          f"corridor frames of mapping_corridor.npz, the clutter and "
+          f"small-room frames of synthetic_fixture.npz with quadratic depth "
+          f"noise): hit masks differing {hit_bad}, depth within "
+          f"{depth_worst} uint16 steps, share of gray pixels off by more "
+          f"than one level (worst frame) {json.dumps(off)} (bound "
+          f"{GRAY_OFF_SHARE}); {numbers['render_ms']:.3f} ms per frame "
+          f"(median, synchronised; first {render_ms[0]:.1f} ms) on {card}",
+          flush=True)
+    if hit_bad or depth_worst > 1 or max(off.values()) > GRAY_OFF_SHARE:
+        fails.append("renderer: hit masks, depth or gray off the JAX renders")
+
+    # --- (b) the run script --------------------------------------------------
+    run = script("run_synthetic_torch")
+    jsum = json.loads(str(fx["run_summary"]))
+    per_frame, kept, kernel = [], [], map_ops.gated_top2_hamming
+    last = [0]
+
+    def on_frame(res, system):
+        per_frame.append(match_cuda.gated_top2_hamming.launches - last[0])
+        last[0] = match_cuda.gated_top2_hamming.launches
+
+    def keep(*a):
+        if len(per_frame) == CHECK_FRAME:
+            kept.append(tuple(x.clone() for x in a))
+        return kernel(*a)
+
+    match_cuda.gated_top2_hamming.launches = 0
+    map_ops.gated_top2_hamming = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                _smoke.track_rgbd_hook(on_frame), \
+                contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            summary = run.main(["--frames", str(_smoke.SYNTH_RUN_FRAMES),
+                                "--out", tmp, "--device", dev.type])
+    finally:
+        map_ops.gated_top2_hamming = kernel
+    launches = match_cuda.gated_top2_hamming.launches
+    n = _smoke.SYNTH_RUN_FRAMES
+    numbers["run_fps"] = summary["fps"]
+    print(f"[synthetic] run_synthetic_torch.py --frames {n}: "
+          f"{json.dumps(summary)} (JAX {json.dumps(jsum)}); "
+          f"{summary['fps']} frames/s (rendering, tracking and mapping, one "
+          f"synchronise at the end) on {card}; matcher launches per frame "
+          f"{per_frame}", flush=True)
+    ate_max = min(SYNTH_ATE_MAX, 2 * jsum["ate_rmse_m"] + 0.005)
+    if summary["lost_frames"] or summary["ate_rmse_m"] >= ate_max:
+        fails.append(f"run script: {summary['lost_frames']} frames LOST, "
+                     f"ATE {summary['ate_rmse_m']} (bound {ate_max:.4f})")
+    if dev.type == "cuda" and per_frame != [0] + [2] * (n - 1):
+        fails.append(f"run script: matcher launches {per_frame}")
+    numbers["max_abs_err"] = _hold_kept(kept, "run_synthetic", torch, dev)
+
+    # --- (c) sharded solves and place recognition ----------------------------
+    mcfg = _smoke.map_state_cfg(config)
+    st, poses_true = synthetic.synthetic_map_state(mcfg, _smoke.MAP_KFS,
+                                                   seed=3, device=dev)
+    sums = _smoke.state_checksums({f: getattr(st, f).cpu().numpy()
+                                   for f in st._fields})
+    bad = []
+    for f, v in sums.items():
+        want = fx[f"ms__{f}"]
+        if v.dtype.kind == "i" and not np.array_equal(v, want):
+            bad.append(f)
+        elif v.dtype.kind == "f" and abs(v[0] - want[0]) > 1e-6 * max(
+                want[1], 1.0):
+            bad.append(f)
+    p = problem_from_state(st)
+    rows = int(p.obs_valid.sum())
+    print(f"[sharded] synthetic_map_state({_smoke.MAP_KFS} keyframes x "
+          f"{mcfg.orb.max_keypoints} slots, {mcfg.map.max_points} points) "
+          f"on {dev}: {p.obs_kf.shape[0]} observation rows, {rows} valid, "
+          f"{int(p.struct.pobs_valid.sum())} plane and "
+          f"{int(p.struct.lobs_valid.sum())} line rows; checksums against "
+          f"the JAX state differing: {bad}", flush=True)
+    if bad or not np.array_equal(poses_true, fx["ms_poses_true"]):
+        fails.append(f"synthetic_map_state checksums differ: {bad}")
+    kw = dict(n_gn_iters=2, n_cg_iters=8)
+    K4m = mcfg.camera.K4
+    home = "cuda:0" if dev.type == "cuda" else "cpu"
+    one = sharded_ba.make_mesh(devices=[home])
+    four = sharded_ba.make_mesh(devices=[home] * 4)
+    solves = {}
+    for name, fn in (
+            ("single", lambda: bundle_adjust(p, K4m, **kw)),
+            ("single again", lambda: bundle_adjust(p, K4m, **kw)),
+            ("1 shard", lambda: sharded_ba.sharded_bundle_adjust(
+                p, K4m, one, **kw)),
+            ("4 shards", lambda: sharded_ba.sharded_bundle_adjust(
+                p, K4m, four, **kw))):
+        solves[name] = _events_ms(torch, dev, fn)
+    ref = solves["single"][0]
+
+    def bits(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a, b))
+
+    # bit-equality is defined where the solve repeats itself bit for bit:
+    # under torch's deterministic algorithms (the gathers' backward
+    # scatter-adds), as well as in the default mode where it already does
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = [bundle_adjust(p, K4m, **kw),
+               sharded_ba.sharded_bundle_adjust(p, K4m, one, **kw)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gap4 = max(float((x - y).abs().max()) for x, y in
+               zip(solves["4 shards"][0], ref))
+    e0 = float(np.linalg.norm(st.kf_pose[:_smoke.MAP_KFS, :3, 3].cpu().numpy()
+                              - poses_true[:, :3, 3], axis=1).mean())
+    e1 = float(np.linalg.norm(
+        solves["4 shards"][0][0][:_smoke.MAP_KFS, :3, 3].cpu().numpy()
+        - poses_true[:, :3, 3], axis=1).mean())
+    numbers["solve_ms"] = {k: (v[1], v[2]) for k, v in solves.items()}
+    print(f"[sharded] bundle_adjust and sharded_bundle_adjust, 2 GN x 8 CG: "
+          + "; ".join(f"{k}: host dispatch {v[1]:.1f} ms, device "
+                      f"{v[2]:.1f} ms" for k, v in solves.items())
+          + f" on {card} (the 4 shards share one card: this times the split "
+          f"and the reduction, not a speed-up); default mode: single "
+          f"bit-equal to a second single solve "
+          f"{bits(solves['single again'][0], ref)}, 1 shard bit-equal to "
+          f"single {bits(solves['1 shard'][0], ref)}; deterministic "
+          f"algorithms: 1 shard bit-equal to single {bits(det[1], det[0])}; "
+          f"4 shards against single {gap4:.2e} (bound {SHARD_TOL}); mean "
+          f"translation error {e0:.4f} -> {e1:.4f} m", flush=True)
+    if not bits(det[1], det[0]):
+        fails.append("a 1-shard solve is not bundle_adjust bit for bit")
+    if gap4 > SHARD_TOL or not e1 < 0.7 * e0:
+        fails.append(f"4-shard solve off by {gap4:.2e}, error {e0} -> {e1}")
+
+    kf_mesh = sharded_ba.make_mesh(devices=[home] * 4, axis="kf")
+    bows = sharded_place.shard_keyframe_bows(st.kf_bow, st.kf_valid, kf_mesh)
+    q = st.kf_bow[5]
+    (s4, c4), host, dms = _events_ms(
+        torch, dev,
+        lambda: sharded_place.sharded_place_scores(q, bows, kf_mesh))
+    s1 = bow_scores(q, st.kf_bow, st.kf_valid)
+    c1 = common_word_counts(q, st.kf_bow, st.kf_valid)
+    exact = torch.equal(s4, s1) and torch.equal(c4, c1)
+    top = int(torch.argmax(s4))
+    print(f"[sharded] sharded_place_scores over 4 shards of the "
+          f"{tuple(st.kf_bow.shape)} tf matrix: equal to the single scan "
+          f"{exact}, query 5 ranks keyframe {top} first; host {host:.3f} ms, "
+          f"device {dms:.3f} ms on {card}", flush=True)
+    if not exact or top != 5:
+        fails.append(f"sharded place scores: exact {exact}, top {top}")
+
+    imgs = torch.stack(corridor[:4])
+    orb_kw = dict(n_features=cfg.orb.n_features, n_levels=cfg.orb.n_levels,
+                  scale=cfg.orb.scale_factor,
+                  max_keypoints=cfg.orb.max_keypoints)
+    (uv, desc, valid), host, dms = _events_ms(
+        torch, dev, lambda: sharded_ba.batched_frontend(
+            imgs, sharded_ba.make_mesh(devices=[home] * 4, axis="data"),
+            **orb_kw))
+    same = all(torch.equal(uv[i], kp.uv) and torch.equal(desc[i], kp.desc)
+               and torch.equal(valid[i], kp.valid)
+               for i, kp in enumerate(extract_orb(im, **orb_kw)
+                                      for im in imgs))
+    print(f"[sharded] batched_frontend on 4 frames at 640x480 over 4 shards: "
+          f"equal to 4 extract_orb calls {same}, {int(valid.sum())} valid "
+          f"keypoints; host {host:.1f} ms, device {dms:.1f} ms on {card}",
+          flush=True)
+    if not same:
+        fails.append("batched_frontend differs from extract_orb")
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        real = sharded_ba.make_mesh()
+        out, host, dms = _events_ms(torch, dev, lambda: sharded_ba
+                                    .sharded_bundle_adjust(p, K4m, real, **kw))
+        print(f"[sharded] a mesh of {len(real.devices)} cards: against "
+              f"single {max(float((x - y).abs().max()) for x, y in zip(out, ref)):.2e}, "
+              f"host {host:.1f} ms, device {dms:.1f} ms (printed, not held)",
+              flush=True)
+
+    # --- (d) the detector trainer --------------------------------------------
+    tr = script("train_yolox_torch")
+    net, _ = tr.make_net(0.33, 0.125, dev)
+    rng = np.random.RandomState(7)
+    batch = tr.to_device(tr.make_batch(rng, _smoke.TRAIN_BATCH), dev)
+    loss0 = tr.loss_batch(net, *batch)
+    loss0.backward()
+    gnorm = float(torch.sqrt(sum(torch.sum(x.grad.double() ** 2)
+                                 for x in net.parameters())))
+    loss0 = float(loss0.detach())
+    want = fx["train_losses"]
+    d0 = abs(loss0 - float(want[0])) / float(want[0])
+    dg = abs(gnorm - float(fx["train_grad_norm0"])) / float(
+        fx["train_grad_norm0"])
+    net, _ = tr.make_net(0.33, 0.125, dev)
+    opt, sched = tr.make_optimizer(net, _smoke.TRAIN_STEPS, 1e-3)
+    rng = np.random.RandomState(7)
+    losses, host_ms, step_ms = [], [], []
+    for _ in range(_smoke.TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = tr.to_device(tr.make_batch(rng, _smoke.TRAIN_BATCH), dev)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        loss, _, ms = _events_ms(torch, dev, lambda: tr.train_step(
+            net, opt, sched, *batch))
+        step_ms.append(ms)
+        losses.append(float(loss))
+    rel = np.abs(np.asarray(losses) - want) / want
+    bound = LOSS_TOL0 + LOSS_TOL_STEP * np.arange(len(want))
+    numbers["train_ms"] = (float(np.median(host_ms)),
+                           float(np.median(step_ms[1:])))
+    print(f"[train] train_yolox_torch.py at width 0.125, 256x256, batch "
+          f"{_smoke.TRAIN_BATCH}: first-batch loss {loss0:.6f} (JAX "
+          f"{float(want[0]):.6f}, relative {d0:.2e}, bound {LOSS_TOL0}), "
+          f"gradient norm {gnorm:.6f} (JAX "
+          f"{float(fx['train_grad_norm0']):.6f}, relative {dg:.2e}, bound "
+          f"{GRAD_NORM_TOL}); {_smoke.TRAIN_STEPS} steps: losses "
+          f"{[round(x, 5) for x in losses]}, relative to JAX's "
+          f"{[float('%.2e' % x) for x in rel]} (bound {LOSS_TOL0} + "
+          f"{LOSS_TOL_STEP} per step); per step: host-side batch "
+          f"{numbers['train_ms'][0]:.1f} ms, device step "
+          f"{numbers['train_ms'][1]:.2f} ms (median; first "
+          f"{step_ms[0]:.1f} ms) on {card}", flush=True)
+    if d0 > LOSS_TOL0 or dg > GRAD_NORM_TOL or (rel > bound).any():
+        fails.append(f"trainer off the JAX trainer: {d0:.2e}, {dg:.2e}, "
+                     f"{rel.tolist()}")
+    if fails:
+        fail("synthetic phase: " + "; ".join(fails))
+    return launches, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1381,17 +1731,22 @@ def main() -> None:
     detect_launches, detect_numbers = detect_phase(dev, cfg, card,
                                                    tum_numbers["frame_ms"])
     err = max(err, detect_numbers["max_abs_err"])
+    # --- 11. the renderer, the run script, sharded solves, the trainer -------
+    synth_launches, synth_numbers = synthetic_phase(dev, cfg, card)
+    err = max(err, synth_numbers["max_abs_err"])
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
           f"{system_launches['b']}, loop {loop_launches}, device loop "
           f"{device_loop_launches}, multi-sequence {multi_launches}, runner "
           f"{tum_launches['runner']}, node {tum_launches['node']}, detector "
-          f"System {detect_launches} (the pipelined timing loop's "
+          f"System {detect_launches}, run_synthetic {synth_launches} (the "
+          f"pipelined timing loop's "
           f"{2 * PIPELINE_FRAMES} not counted)", flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
                       + device_loop_launches + multi_launches
-                      + sum(tum_launches.values()) + detect_launches)
+                      + sum(tum_launches.values()) + detect_launches
+                      + synth_launches)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

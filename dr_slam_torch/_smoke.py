@@ -5,8 +5,10 @@ matcher inputs at the main path's shapes, the mapping fixture with the
 Tracker run over it, the reloc fixture with the System run over it, the
 loop fixture with the bounds of a loop correction, and the device-loop
 fixture with the DeviceLoopTracker run over the mapping fixture's frames,
-and the TUM fixture with the dataset runner and a streaming-node session
-over the same frames exported as a TUM sequence."""
+the TUM fixture with the dataset runner and a streaming-node session
+over the same frames exported as a TUM sequence, and the synthetic fixture
+with its scenes, the realistic-capacity map configuration and the map
+state's checksums."""
 
 from __future__ import annotations
 
@@ -997,3 +999,71 @@ def yolox_macs(meta: dict, size: int) -> int:
     return sum((size // stride[name.split(".")[0]]) ** 2 * c_in * c_out * k * k
                for name, c_in, c_out, k in _layout(meta["widths"],
                                                    meta["depths"]))
+
+
+SYNTH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "synthetic_fixture.npz")
+SYNTH_FRAME = 7          # the fixture scenes' frame (depth noise PRNGKey(7))
+SYNTH_RUN_FRAMES = 24    # scripts/run_synthetic_torch.py --frames
+TRAIN_STEPS = 20         # scripts/train_yolox_torch.py --steps
+TRAIN_BATCH = 8
+MAP_KFS = 240            # synthetic_map_state's keyframes (seed 3)
+
+
+def synthetic_scenes(synthetic) -> list:
+    """The fixture's two rendered scenes, built with either package's
+    `io/synthetic` module (their numpy trajectories and clutter are the
+    same): [(name, room, poses (40, 4, 4), boxes)], each rendered at frame
+    SYNTH_FRAME with Kinect-like (quadratic) depth noise. The default room
+    among office clutter on the loop, and scripts/train_vocab.py's
+    small-room family."""
+    small = synthetic.BoxRoom(xmax=2.6, ymax=2.2, zmax=3.4)
+    return [
+        ("clutter", synthetic.BoxRoom(), synthetic.loop_trajectory(40),
+         synthetic.office_clutter(n_boxes=6, seed=3)),
+        ("small_room", small,
+         synthetic.corridor_trajectory(40, room=small, step=0.012),
+         synthetic.office_clutter(small, n_boxes=4, seed=11)),
+    ]
+
+
+def quantize(gray, depth, depth_factor: float):
+    """The fixtures' camera-native frames: uint8 gray, uint16 depth units
+    (the JAX fixture scripts' expressions). Tensors -> numpy arrays."""
+    g8 = torch.clamp(gray + 0.5, 0, 255).to(torch.uint8)
+    d16 = torch.clamp(depth * depth_factor + 0.5, 0, 65535).to(torch.int32)
+    return g8.cpu().numpy(), d16.cpu().numpy().astype(np.uint16)
+
+
+def map_state_cfg(config):
+    """tests/test_backend.py's realistic-capacity configuration (320x240,
+    512 keypoint slots, 16384 points, 256 keyframes, 64 words), built from
+    either package's `config` module."""
+    return config.SlamConfig(
+        camera=config.CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
+                                   width=320, height=240, bf=20.0),
+        orb=config.ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
+        line=config.LineConfig(max_lines=8),
+        map=config.MapConfig(max_points=16384, max_lines=16, max_planes=8,
+                             max_keyframes=256, vocab_words=64))
+
+
+def state_checksums(fields: dict) -> dict:
+    """name -> numpy array of a MapState's fields -> name -> checksum: for
+    integer and bool tables the sum and an index-weighted sum (int64,
+    exact), for float tables the float64 sum and sum of magnitudes."""
+    out = {}
+    for name, a in fields.items():
+        a = np.asarray(a).reshape(-1)
+        if a.dtype.kind in "biu":
+            v = a.astype(np.int64)
+            w = np.arange(v.size, dtype=np.int64) % 9973 + 1
+            out[name] = np.asarray([v.sum(), (v * w).sum()], np.int64)
+        else:
+            v = a.astype(np.float64)
+            out[name] = np.asarray([v.sum(), np.abs(v).sum()])
+    return out
+
+
+def load_synth_fixture() -> dict:
+    return load_npz(SYNTH_FIXTURE)

@@ -150,6 +150,17 @@ def params_to_state_dict(params: dict) -> dict:
     return sd
 
 
+def state_dict_to_params(sd: dict, meta: dict) -> dict:
+    """`YOLOXNet`'s state dict -> the JAX layout (`meta`, HWIO `w` and `b`
+    numpy arrays per convolution): the inverse of `params_to_state_dict`."""
+    p = {"meta": meta}
+    for name, *_ in _layout(meta["widths"], meta["depths"]):
+        w = sd[f"convs.{_key(name)}.weight"].detach().cpu().numpy()
+        p[name] = {"w": np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0))),
+                   "b": sd[f"convs.{_key(name)}.bias"].detach().cpu().numpy()}
+    return p
+
+
 def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:
     """XLA's "SAME" padding of one extent: (before, after)."""
     total = max((math.ceil(n / stride) - 1) * stride + k - n, 0)

@@ -19,11 +19,9 @@ here too it is off by default). The algorithm:
    scoring (CylinderSeg.cpp:138-150), inlier refit, consume the inliers.
 
 The triplets are drawn as the JAX package draws them, Gumbel noise from
-`jax.random.gumbel(fold_in(PRNGKey(7), k), (H, NB))` and its top 3: this
-module carries its own threefry-2x32 (JAX's default partitionable layout),
-so both packages sample the same triplets and find the same cylinders. It
-runs in int64 masked to 32 bits: `>>` on `torch.uint32` is not implemented
-on the CPU."""
+`jax.random.gumbel(fold_in(PRNGKey(7), k), (H, NB))` and its top 3, from
+the port's copy of JAX's threefry PRNG (`utils/prng.py`), so both packages
+sample the same triplets and find the same cylinders."""
 
 from __future__ import annotations
 
@@ -36,13 +34,11 @@ from dr_slam_torch.ops import eig33
 from dr_slam_torch.ops.normals import depth_to_cloud
 from dr_slam_torch.ops.planes import _block_moments
 from dr_slam_torch.ops.select import top_k
+from dr_slam_torch.utils.prng import fold_in, random_bits
 
 CYL_SCORE_MIN = 100.0          # Params.h:8
 CYL_SQR_MAX_DIST = 0.0225      # Params.h:9 (15% of radius, squared)
 KEY = (0, 7)                   # jax.random.PRNGKey(7)
-
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 class CylinderSegmentation(NamedTuple):
@@ -55,39 +51,15 @@ class CylinderSegmentation(NamedTuple):
     cell_mask: torch.Tensor  # (C, NB) member cells over the flattened grid
 
 
-def threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32 (20 rounds) of the counters (x0, x1) under the key
-    (k0, k1). Works on Python ints and on int64 tensors holding 32-bit
-    values."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
-
-
-def fold_in(key: tuple, data: int) -> tuple:
-    """jax.random.fold_in for a threefry key: the hash of (0, data)."""
-    return threefry2x32(key[0], key[1], 0, data & _M32)
-
-
 def gumbel(key: tuple, shape: tuple, device) -> torch.Tensor:
     """jax.random.gumbel(key, shape) in float32: 32 random bits per element
     (the hash of its flat index, high and low words XORed), a uniform on
     [tiny, 1) from the top 23 bits, then -log(-log(u))."""
-    n = int(np.prod(shape))
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(key[0], key[1], i >> 32, i & _M32)
-    mant = (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32)
+    mant = ((random_bits(key, shape, device) >> 9) | 0x3F800000).to(torch.int32)
     tiny = float(np.finfo(np.float32).tiny)
     # scaled to [tiny, 1): (maxval - minval) is 1.0 in float32
     u = torch.clamp(mant.view(torch.float32) - 1.0 + tiny, min=tiny)
-    return -torch.log(-torch.log(u)).reshape(shape)
+    return -torch.log(-torch.log(u))
 
 
 def extract_cylinders(mean, normal, active, max_cylinders: int = 3,

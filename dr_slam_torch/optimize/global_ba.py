@@ -183,18 +183,17 @@ def local_problem_from_state(state, center_kf, window: int = 8,
         obs_valid=valid, kf_free=kf_free, pt_free=pt_free, struct=struct), win
 
 
-def bundle_adjust(p: BAProblem, K4, n_gn_iters: int = 8, n_cg_iters: int = 40,
-                  damping: float = 1e-3, huber: bool = True,
-                  chi2_mono: float = 5.991, chi2_plane: float = 100.0,
-                  chi2_vp: float = 50.0, chi2_line: float = 9.0,
-                  angle_info: float = 0.5, dist_info: float = 50.0,
-                  line_info: float = 0.25, line3d_info: float = 25.0):
-    """-> (kf_pose, pt_pos), or (kf_pose, pt_pos, pl_coef, ln_ep) when the
-    problem carries StructBlocks."""
+def _shard_terms(p: BAProblem, K4, huber: bool, chi2_mono: float,
+                 chi2_plane: float, chi2_vp: float, chi2_line: float,
+                 angle_info: float, dist_info: float, line_info: float,
+                 line3d_info: float):
+    """The Huber weights and the weighted residuals of one problem's
+    observation rows, on the problem's device. -> (weights(T, X, P, L) ->
+    (w, wp, wl), res_at(xi, dX, dP, dL, cur, sws) -> the flat weighted
+    residual at the update (xi, dX, dP, dL) of the parameters `cur` =
+    (T, X, P, L), with the weights' square roots `sws`)."""
     dev = p.kf_pose.device
     f32 = torch.float32
-    NK = p.kf_pose.shape[0]
-    NP = p.pt_pos.shape[0]
     kf_freef = p.kf_free.to(f32)[:, None]
     pt_freef = p.pt_free.to(f32)[:, None]
     s = p.struct
@@ -205,25 +204,12 @@ def bundle_adjust(p: BAProblem, K4, n_gn_iters: int = 8, n_cg_iters: int = 40,
     info_z = torch.where(has_z, 1.0 / (sigma_z * sigma_z), 0.0)
 
     if has_struct:
-        NF = s.pl_coef.shape[0]
-        NL = s.ln_ep.shape[0]
         pl_freef = s.pl_free.to(f32)[:, None]
         ln_freef = s.ln_free.to(f32)[:, None]
-        # sanitise DEGENERATE rows (empty slots: zero normal, coincident
-        # endpoints) before anything is differentiated: the derivative of a
-        # zero vector's normalisation is NaN, and NaN times a zero weight
-        # still poisons the solve. Keyed on content, not freeness.
         safe_pl = torch.tensor(_SAFE_PLANE4, dtype=f32, device=dev)
-        safe_ln = torch.tensor(_SAFE_LINE6, dtype=f32, device=dev)
-        pl_live = torch.linalg.norm(s.pl_coef[:, :3], dim=-1) > 0.5
-        ln_live = torch.linalg.norm(s.ln_ep[:, 3:] - s.ln_ep[:, :3], dim=-1) > 1e-4
-        pl0 = torch.where(pl_live[:, None], s.pl_coef, safe_pl)
-        ln0 = torch.where(ln_live[:, None], s.ln_ep, safe_ln)
         pobs_coef = torch.where(s.pobs_valid[:, None], s.pobs_coef, safe_pl)
         is_direct = (s.pobs_kind == 0)[:, None]
         is_ver = (s.pobs_kind == 2)[:, None]
-    else:
-        NF = NL = 0
 
     def reproj(T_all, X_all):
         """(M, 3) residual (du, dv, dz) and its validity."""
@@ -322,6 +308,73 @@ def bundle_adjust(p: BAProblem, K4, n_gn_iters: int = 8, n_cg_iters: int = 40,
                           -1)
         return w, wp, huberize(linfo, rl, chi2_line)
 
+    def res_at(xi, dX, dP, dL, cur, sws):
+        T_cur, X_cur, P_cur, L_cur = cur
+        sw, swp, swl = sws
+        T = se3.se3_exp(xi * kf_freef) @ T_cur
+        r, _ = reproj(T, X_cur + dX * pt_freef)
+        parts = [(r * sw).reshape(-1)]
+        if has_struct:
+            Pn = plane_retract(P_cur, dP * pl_freef)
+            parts.append((plane_res(T, Pn) * swp).reshape(-1))
+            rl = line_res(T, L_cur + dL * ln_freef)[0]
+            parts.append((rl * swl).reshape(-1))
+        return torch.cat(parts)
+
+    return weights, res_at
+
+
+def bundle_adjust(p: BAProblem, K4, **kw):
+    """-> (kf_pose, pt_pos), or (kf_pose, pt_pos, pl_coef, ln_ep) when the
+    problem carries StructBlocks. Options as `bundle_adjust_shards`."""
+    return bundle_adjust_shards([p], K4, **kw)
+
+
+def bundle_adjust_shards(shards: list, K4, n_gn_iters: int = 8,
+                         n_cg_iters: int = 40, damping: float = 1e-3,
+                         huber: bool = True, chi2_mono: float = 5.991,
+                         chi2_plane: float = 100.0, chi2_vp: float = 50.0,
+                         chi2_line: float = 9.0, angle_info: float = 0.5,
+                         dist_info: float = 50.0, line_info: float = 0.25,
+                         line3d_info: float = 25.0):
+    """`bundle_adjust` over observation shards: each shard is a BAProblem
+    on its own device, holding a slice of the observation rows (`obs_*`,
+    `pobs_*`, `lobs_*`) and a copy of the parameters. The Huber weights are
+    per observation and stay in their shard; J^T r and every conjugate-
+    gradient product J^T J v are the shards' own, moved to the first
+    shard's device and summed there in shard order (the psum that XLA
+    inserts for the JAX package's sharded solve). The solve and the result
+    live on the first shard's device. One shard is `bundle_adjust`."""
+    p = shards[0]
+    dev = p.kf_pose.device
+    f32 = torch.float32
+    NK = p.kf_pose.shape[0]
+    NP = p.pt_pos.shape[0]
+    kf_freef = p.kf_free.to(f32)[:, None]
+    pt_freef = p.pt_free.to(f32)[:, None]
+    s = p.struct
+    has_struct = s is not None
+    if has_struct:
+        NF = s.pl_coef.shape[0]
+        NL = s.ln_ep.shape[0]
+        pl_freef = s.pl_free.to(f32)[:, None]
+        ln_freef = s.ln_free.to(f32)[:, None]
+        # sanitise DEGENERATE rows (empty slots: zero normal, coincident
+        # endpoints) before anything is differentiated: the derivative of a
+        # zero vector's normalisation is NaN, and NaN times a zero weight
+        # still poisons the solve. Keyed on content, not freeness.
+        safe_pl = torch.tensor(_SAFE_PLANE4, dtype=f32, device=dev)
+        safe_ln = torch.tensor(_SAFE_LINE6, dtype=f32, device=dev)
+        pl_live = torch.linalg.norm(s.pl_coef[:, :3], dim=-1) > 0.5
+        ln_live = torch.linalg.norm(s.ln_ep[:, 3:] - s.ln_ep[:, :3], dim=-1) > 1e-4
+        pl0 = torch.where(pl_live[:, None], s.pl_coef, safe_pl)
+        ln0 = torch.where(ln_live[:, None], s.ln_ep, safe_ln)
+    else:
+        NF = NL = 0
+    terms = [_shard_terms(q, K4, huber, chi2_mono, chi2_plane, chi2_vp,
+                          chi2_line, angle_info, dist_info, line_info,
+                          line3d_info) for q in shards]
+
     shapes = [(NK, 6), (NP, 3), (NF, 3), (NL, 6)]
     sizes = [a * b for a, b in shapes]
 
@@ -331,35 +384,38 @@ def bundle_adjust(p: BAProblem, K4, n_gn_iters: int = 8, n_cg_iters: int = 40,
     def flat(t):
         return torch.cat([x.reshape(-1) for x in t])
 
+    def reduce(parts):
+        """Per-shard vectors summed on the parameters' device, in order."""
+        total = parts[0].to(dev)
+        for x in parts[1:]:
+            total = total + x.to(dev)
+        return total
+
     T_cur, X_cur = p.kf_pose, p.pt_pos
     P_cur = pl0 if has_struct else torch.zeros((0, 4), device=dev)
     L_cur = ln0 if has_struct else torch.zeros((0, 6), device=dev)
     for _ in range(n_gn_iters):
-        w, wp, wl = weights(T_cur, X_cur, P_cur, L_cur)
-        sw = torch.sqrt(w)
-        swp = None if wp is None else torch.sqrt(wp)
-        swl = None if wl is None else torch.sqrt(wl)
+        lin = []
+        for q, (weights, res_at) in zip(shards, terms):
+            d = q.kf_pose.device
+            cur = tuple(x.to(d) for x in (T_cur, X_cur, P_cur, L_cur))
+            sws = tuple(None if w is None else torch.sqrt(w)
+                        for w in weights(*cur))
 
-        def res_at(xi, dX, dP, dL, T_cur=T_cur, X_cur=X_cur, P_cur=P_cur,
-                   L_cur=L_cur, sw=sw, swp=swp, swl=swl):
-            T = se3.se3_exp(xi * kf_freef) @ T_cur
-            r, _ = reproj(T, X_cur + dX * pt_freef)
-            parts = [(r * sw).reshape(-1)]
-            if has_struct:
-                Pn = plane_retract(P_cur, dP * pl_freef)
-                parts.append((plane_res(T, Pn) * swp).reshape(-1))
-                rl = line_res(T, L_cur + dL * ln_freef)[0]
-                parts.append((rl * swl).reshape(-1))
-            return torch.cat(parts)
+            def f(xi, dX, dP, dL, res_at=res_at, cur=cur, sws=sws):
+                return res_at(xi, dX, dP, dL, cur, sws)
 
-        zero = tuple(torch.zeros(sh, device=dev) for sh in shapes)
-        r0, vjp_fn = torch.func.vjp(res_at, *zero)
+            zero = tuple(torch.zeros(sh, device=d) for sh in shapes)
+            r0, vjp_fn = torch.func.vjp(f, *zero)
+            lin.append((d, f, zero, r0, vjp_fn))
 
         def hvp(v):
-            jv = torch.func.jvp(res_at, zero, unflat(v))[1]
-            return flat(vjp_fn(jv))
+            return reduce([
+                flat(vjp_fn(torch.func.jvp(f, zero, unflat(v.to(d)))[1]))
+                for d, f, zero, _, vjp_fn in lin])
 
-        dx = _cg(hvp, -flat(vjp_fn(r0)), n_cg_iters, damping)
+        b = reduce([flat(vjp_fn(r0)) for _, _, _, r0, vjp_fn in lin])
+        dx = _cg(hvp, -b, n_cg_iters, damping)
         dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
         dxi, dX, dP, dL = unflat(dx)
         T_cur = se3.se3_exp(dxi * kf_freef) @ T_cur

@@ -84,3 +84,20 @@ def test_stacked_carries_and_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MultiSequenceTracker(cfg, 2)
+
+
+def test_mesh_matches_n_seq(multi_run):
+    """One sequence per device of a two-entry CPU mesh: bit for bit the
+    records of the n_seq=2 path."""
+    from dr_slam_torch.parallel.sharded_ba import make_mesh
+
+    cfg, frames, _, flushed = multi_run
+    mesh = make_mesh(devices=["cpu"] * N_SEQ, axis="seq")
+    tr = MultiSequenceTracker(cfg, mesh=mesh, axis="seq")
+    assert tr.n == N_SEQ
+    for i, (g, d) in enumerate(frames):
+        tr.track(g, d, np.full((N_SEQ,), i / 30.0))
+    for a, b in zip(tr.flush(), flushed):
+        np.testing.assert_array_equal(a["records"], b["records"])
+        assert a["states"] == b["states"]
+        assert a["n_keyframes"] == b["n_keyframes"]
