@@ -24,7 +24,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    eager launches back to back, 200 wrapper calls and 10 calls of the plain
    version, each divided by its count, and the device time of each of its
    three CUDA kernels from torch.profiler. Last, a pipelined
-   loop of 64 frames (the four frames cycled, as bench.py's
+   loop of 32 frames (the four frames cycled, as bench.py's
    bench_odometry does) is timed.
 4. tracker: `Tracker(cfg, device="cuda").process_frame` from an empty map
    over the 24 frames of dr_slam_torch/data/mapping_corridor.npz (made by
@@ -144,6 +144,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
    batch's loss and gradient norm against the JAX trainer's, then 20
    steps within LOSS_TOL0 + LOSS_TOL_STEP per step of the JAX losses; ms
    per step split into the host-side batch and the device step.
+12. closed-loop accuracy: scripts/bench_accuracy.py's protocol on the port
+   (`_smoke.accuracy_run("cuda")`, the twin of
+   scripts/bench_accuracy_torch.py, each frame synchronised): a codebook
+   trained on the sequence, `System` with loop closing on over the 270
+   frames of a circular path at 320x240 and its first 70 again, drift
+   injected after frame 120, the loop closed and corrected, the raw and
+   corrected ATE; against the JAX run in dr_slam_torch/data/
+   accuracy_loop.npz (made by scripts/make_torch_accuracy_fixture.py, JAX
+   tracking with the port's pose rule): states, keyframe flags, reference
+   keyframes, keyframes' frames, LOST frames and the loops closed (at
+   least one; frame, keyframe slot and keyframe pair) exact over every
+   frame, the corrected ATE under ACCURACY_ATE_MAX, under the raw ATE less
+   ACCURACY_ATE_GAIN and within 2x + 5 mm of JAX's (bounds in
+   dr_slam_torch/_smoke.py); T_cw's largest gap to JAX's and the frames
+   over TRACKER_T_TOL are printed, and the reference test's LOST bound
+   beside JAX's count. The kernel is held against its plain version on both
+   launches of frames 60 and 121 (before and after the injection).
+   Prints frames/s, the ms of tracked frames and of the frames that ran a
+   local-mapping pass, `loop.process` ms and the global BA's dispatch
+   and device ms at the firing, and the launches.
 
 Phases 3-4 and 6-9 run with the shipped codebooks registered, as the JAX
 runs that made the fixtures had them (a bare Tracker or DeviceLoopTracker
@@ -151,8 +171,8 @@ registers none; the System registers them itself).
 
 The kernel table's `launches` adds the main path's, the tracker's, the two
 System scenarios', the loop phase's, the device loop's, the multi-sequence
-phase's, the runner's and node's, the detector System's and the synthetic
-run script's.
+phase's, the runner's and node's, the detector System's, the synthetic
+run script's and the accuracy protocol's.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -187,9 +207,9 @@ def fail(msg: str) -> None:
 # by 2%.
 T_TOL = 1e-3          # max |T_cw - T_cw_jax| entry (rotation, meters)
 COUNT_TOL = 0.02      # |n_matches - jax|, |n_inliers - jax| over the jax count
-# 64, not bench_odometry's 240: at about 1 s a frame on the host, the
+# 32, not bench_odometry's 240: at about 1 s a frame on the host, the
 # loop would take most of the run's time limit as the phases grow
-PIPELINE_FRAMES = 64
+PIPELINE_FRAMES = 32
 
 # Where the TPU kernel that the CUDA kernel replaces lives, in the JAX
 # reference package. The package name is assembled so that a search of this
@@ -637,26 +657,27 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def _hold_kept(kept: list, path: str, torch, dev) -> float:
+def _hold_kept(kept: list, path: str, torch, dev,
+               frame: int = CHECK_FRAME) -> float:
     """The kernel against its plain version on both matcher launches that
-    `path` made on CHECK_FRAME. -> the largest abs error."""
+    `path` made on `frame`. -> the largest abs error."""
     from dr_slam_torch.ops import match_cuda
 
     if len(kept) != 2:
         fail(f"{path}: {len(kept)} matcher calls kept on frame "
-             f"{CHECK_FRAME}, expected 2")
+             f"{frame}, expected 2")
     err = 0.0
     for stage, a in enumerate(kept, 1):
         out_k = match_cuda.gated_top2_hamming(*a)
         _sync(torch, dev)
         out_r = match_cuda.gated_top2_hamming_ref(*a)
         mism, e = _compare(out_k, out_r, torch)
-        print(f"[kernel] {path} frame {CHECK_FRAME} stage {stage}: "
+        print(f"[kernel] {path} frame {frame} stage {stage}: "
               f"K={a[0].shape[0]} NC={a[4].shape[0]} valid={int(a[9].sum())} "
               f"mismatches={mism} max_abs_err={e}", flush=True)
         if any(mism.values()):
             fail(f"kernel disagrees with its plain version ({path} frame "
-                 f"{CHECK_FRAME} stage {stage}): {mism}")
+                 f"{frame} stage {stage}): {mism}")
         err = max(err, e)
     return err
 
@@ -1510,6 +1531,124 @@ def synthetic_phase(dev, cfg, card: str) -> tuple[int, dict]:
     return launches, numbers
 
 
+def accuracy_phase(dev, card: str) -> tuple[int, dict]:
+    """Phase 12: scripts/bench_accuracy.py's closed-loop protocol on the
+    port (`_smoke.accuracy_run`, each frame synchronised) over all 270
+    frames, against the JAX run in dr_slam_torch/data/accuracy_loop.npz,
+    with the kernel held against its plain version on both launches of
+    each of ACCURACY_CHECK_FRAMES. -> (matcher launches of the run, the
+    numbers printed)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from dr_slam_torch import _smoke
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.loop_closing import LoopCloser
+
+    data = _smoke.load_accuracy_fixture()
+    want = json.loads(str(data["summary"]))
+    per_frame, calls, last = [], [], [0]
+    kept = {f: [] for f in _smoke.ACCURACY_CHECK_FRAMES}
+    kernel, process = map_ops.gated_top2_hamming, LoopCloser.process
+
+    def on_frame(res, system):
+        per_frame.append(match_cuda.gated_top2_hamming.launches - last[0])
+        last[0] = match_cuda.gated_top2_hamming.launches
+
+    def keep(*a):
+        if len(per_frame) in kept:
+            kept[len(per_frame)].append(tuple(x.clone() for x in a))
+        return kernel(*a)
+
+    def timed(self, *a, **kw):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = process(self, *a, **kw)
+        _sync(torch, dev)
+        calls.append((len(per_frame), (time.perf_counter() - t0) * 1e3,
+                      bool(out[1])))
+        return out
+
+    match_cuda.gated_top2_hamming.launches = 0
+    map_ops.gated_top2_hamming = keep
+    LoopCloser.process = timed
+    t0 = time.perf_counter()
+    try:
+        with _smoke.track_rgbd_hook(on_frame):
+            run = _smoke.accuracy_run(dev)
+    finally:
+        map_ops.gated_top2_hamming = kernel
+        LoopCloser.process = process
+    seconds = time.perf_counter() - t0
+    launches = match_cuda.gated_top2_hamming.launches
+
+    summ, n = run.summary, len(run.ms)
+    gaps, fails = _smoke.accuracy_gaps(run, data)
+    print(f"[accuracy] {n} frames at 320x240 (loop config, codebook in "
+          f"effect: {run.codebook}) against JAX's run with the same pose "
+          f"rule: frames where states, keyframe flags, reference keyframes "
+          f"differ {gaps['differ']}; keyframes at {run.kf_frames} (JAX "
+          f"{gaps['jax_kf_frames']}); LOST frames {gaps['lost']} (JAX "
+          f"{gaps['jax_lost']}; tests/test_loop_closure.py's bound "
+          f"{_smoke.ACCURACY_LOST_MAX}); |dT_cw|max {gaps['dT_max']:.2e}, "
+          f"frames over {_smoke.TRACKER_T_TOL} {gaps['dT_over']} (the "
+          f"card's own renders)", flush=True)
+    print(f"[accuracy] loops (frame, keyframe slot, (loop seq, current "
+          f"seq)): {gaps['loops']} (JAX {gaps['jax_loops']})", flush=True)
+    print(f"[accuracy] ATE corrected {summ['ate_rmse_m']:.4f} m, raw "
+          f"{summ['ate_rmse_raw_m']:.4f} m (JAX {want['ate_rmse_m']}, "
+          f"{want['ate_rmse_raw_m']}); bound on the corrected "
+          f"{gaps['ate_max']:.4f} m", flush=True)
+    # every frame but the first that ends OK matched through the kernel
+    # (a LOST frame launches it only if relocalization has a candidate)
+    idle = [i for i in range(1, n) if run.records["state"][i] == 2
+            and per_frame[i] < 1]
+    if dev.type == "cuda" and (per_frame[0] != 0 or idle):
+        fails.append(f"matcher launches per frame {per_frame}: none on the "
+                     f"tracked frames {idle}")
+
+    ms = np.asarray(run.ms)
+    mapped = [i for i in range(1, n) if run.mapped[i]]
+    busy = {c[0] for c in calls} | set(gaps["lost"])
+    tracked = [i for i in range(1, n) if not run.mapped[i] and i not in busy]
+    fire = [c for c in calls if c[2]]
+    quiet = [c[1] for c in calls if not c[2]]
+    lc = run.system._loop_closer
+    gba = "not dispatched"
+    if lc is not None and dev.type != "cuda" and lc.dispatch_seconds:
+        gba = f"solved at dispatch in {lc.dispatch_seconds * 1e3:.1f} ms"
+    elif lc is not None and lc.gba_events is not None:
+        gba = (f"host dispatch {lc.dispatch_seconds * 1e3:.1f} ms, device "
+               f"{lc.gba_events[0].elapsed_time(lc.gba_events[1]):.1f} ms")
+    numbers = {"fps": n / (ms.sum() / 1e3), "ate": summ["ate_rmse_m"]}
+    print(f"[accuracy] {numbers['fps']:.3f} frames/s over the {n} frames "
+          f"(synchronised per frame; {seconds:.1f} s with the codebook's "
+          f"training); tracked frames median {np.median(ms[tracked]):.1f} "
+          f"ms; the {len(mapped)} frames that ran a local-mapping pass "
+          f"median {np.median(ms[mapped]):.1f} ms, mean "
+          f"{ms[mapped].mean():.1f} ms (each with loop.process); "
+          f"loop.process {len(calls)} calls, median of those that did not "
+          f"fire {np.median(quiet):.1f} ms; at the firing (frame "
+          f"{fire[0][0] if fire else None}) "
+          f"{fire[0][1] if fire else float('nan'):.1f} ms, its frame "
+          f"{ms[fire[0][0]] if fire else float('nan'):.1f} ms (the global "
+          f"BA included: the frame's synchronise waits for its stream); "
+          f"global BA {gba}; on {card}", flush=True)
+    hist = collections.Counter(per_frame)
+    print(f"[accuracy] matcher launches {launches}: frames by launches "
+          f"{dict(sorted(hist.items()))}", flush=True)
+    err = 0.0
+    for frame, a in kept.items():
+        err = max(err, _hold_kept(a, "accuracy", torch, dev, frame))
+    numbers["max_abs_err"] = err
+    if fails:
+        fail("accuracy phase: " + "; ".join(fails))
+    return launches, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1734,19 +1873,23 @@ def main() -> None:
     # --- 11. the renderer, the run script, sharded solves, the trainer -------
     synth_launches, synth_numbers = synthetic_phase(dev, cfg, card)
     err = max(err, synth_numbers["max_abs_err"])
+    # --- 12. the closed-loop accuracy protocol -------------------------------
+    accuracy_launches, accuracy_numbers = accuracy_phase(dev, card)
+    err = max(err, accuracy_numbers["max_abs_err"])
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
           f"{system_launches['b']}, loop {loop_launches}, device loop "
           f"{device_loop_launches}, multi-sequence {multi_launches}, runner "
           f"{tum_launches['runner']}, node {tum_launches['node']}, detector "
-          f"System {detect_launches}, run_synthetic {synth_launches} (the "
-          f"pipelined timing loop's "
+          f"System {detect_launches}, run_synthetic {synth_launches}, "
+          f"accuracy protocol {accuracy_launches} (the pipelined timing "
+          f"loop's "
           f"{2 * PIPELINE_FRAMES} not counted)", flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
                       + device_loop_launches + multi_launches
                       + sum(tum_launches.values()) + detect_launches
-                      + synth_launches)
+                      + synth_launches + accuracy_launches)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

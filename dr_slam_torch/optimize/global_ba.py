@@ -62,6 +62,16 @@ def _marked(n: int, idx: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
     return out.scatter_reduce(0, idx, flag.to(torch.int32), reduce="amax") > 0
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`x[idx]` along the first axis, with a gradient summed in a fixed
+    order. The derivative of `x[idx]` accumulates with atomic adds over
+    threads on the CPU, so repeated solves differ in their last bits there;
+    `index_select`'s derivative (`index_add_`) adds the rows one after the
+    other. CUDA keeps `x[idx]`, whose derivative sorts the indices and is
+    already run-to-run equal."""
+    return x[idx] if x.is_cuda else x.index_select(0, idx)
+
+
 def plane_retract(pl: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """3-DoF plane update: the normal moves in its tangent plane, the
     distance adds."""
@@ -213,8 +223,8 @@ def _shard_terms(p: BAProblem, K4, huber: bool, chi2_mono: float,
 
     def reproj(T_all, X_all):
         """(M, 3) residual (du, dv, dz) and its validity."""
-        T = T_all[p.obs_kf]
-        Xc = (torch.einsum("mij,mj->mi", T[:, :3, :3], X_all[p.obs_pt])
+        T = _rows(T_all, p.obs_kf)
+        Xc = (torch.einsum("mij,mj->mi", T[:, :3, :3], _rows(X_all, p.obs_pt))
               + T[:, :3, 3])
         uv = se3.project(K4, Xc)
         dz = torch.where(has_z, p.obs_z - Xc[:, 2], 0.0)
@@ -224,8 +234,8 @@ def _shard_terms(p: BAProblem, K4, huber: bool, chi2_mono: float,
     def plane_res(T_all, P_all):
         """(Mp, 3): tangent components + distance (direct), tangent
         components (parallel), normal dot (vertical)."""
-        T_wc = se3.inv_T(T_all[s.pobs_kf])
-        pred = torch.einsum("mi,mij->mj", P_all[s.pobs_pl], T_wc)
+        T_wc = se3.inv_T(_rows(T_all, s.pobs_kf))
+        pred = torch.einsum("mi,mij->mj", _rows(P_all, s.pobs_pl), T_wc)
         pred = pred / torch.clamp(torch.linalg.norm(pred[:, :3], dim=-1,
                                                     keepdim=True), min=1e-9)
         pred = pred * torch.where(pred[:, 3:4] < 0, -1.0, 1.0)
@@ -250,8 +260,8 @@ def _shard_terms(p: BAProblem, K4, huber: bool, chi2_mono: float,
         """(Ml, 8): both projected endpoints against the observed 2D line,
         and each predicted endpoint's perpendicular offset from the measured
         3D line (the RGB-D anchor of the endpoints' null space)."""
-        T = T_all[s.lobs_kf]
-        L = L_all[s.lobs_ln]
+        T = _rows(T_all, s.lobs_kf)
+        L = _rows(L_all, s.lobs_ln)
         R, t = T[:, :3, :3], T[:, :3, 3]
         Xs = torch.einsum("mij,mj->mi", R, L[:, :3]) + t
         Xe = torch.einsum("mij,mj->mi", R, L[:, 3:]) + t

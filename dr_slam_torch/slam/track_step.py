@@ -175,7 +175,11 @@ def track_step(state: MapState, feats: FrameFeatures, T_last, velocity,
                                   n_struct=cfg.map.max_kf_planes)
     opt2 = pose_optimize(opt.T_cw, obs2, cam.K4, cam.bf,
                          translation_only=False, struct_on=True, **solve_kw)
-    T_cur = opt2.T_cw
+    # back onto SO(3): the velocity model predicts T_cur inv_T(T_last) T_cur,
+    # and inv_T transposes R, so a rotation's departure from orthonormality
+    # would grow by 1 + sqrt(2) per frame while the Manhattan prior is off
+    T_cur = se3.make_T(se3.orthonormalize_rotation(opt2.T_cw[:3, :3]),
+                       opt2.T_cw[:3, 3])
 
     # --- bookkeeping (MapPoint Increase{Visible,Found}) -----------------------
     new_state = map_ops.update_point_stats(state, pm2.visible, mp_idx2)
