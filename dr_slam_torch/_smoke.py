@@ -303,6 +303,20 @@ def load_npz(path: str) -> dict:
         return {k: fx[k] for k in fx.files}
 
 
+def small_cfg():
+    """tests/test_tracking_e2e.py's configuration in the port: 320x240, 512
+    keypoints, 4096 map points, 32 keyframes, 512 vocabulary words."""
+    from dr_slam_torch.config import (CameraConfig, LineConfig, MapConfig,
+                                      ORBConfig, SlamConfig)
+    return SlamConfig(
+        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
+                            width=320, height=240, bf=20.0),
+        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
+        line=LineConfig(max_lines=32),
+        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
+                      max_keyframes=32, vocab_words=512))
+
+
 def loop_small_cfg():
     """The configuration of the JAX package's loop scenario
     (tests/test_loop_closure.py), which the loop fixture was made at:
@@ -310,15 +324,7 @@ def loop_small_cfg():
     keyframe culling off, 15 / 6 px match windows, loop consistency 1."""
     import dataclasses
 
-    from dr_slam_torch.config import (CameraConfig, LineConfig, MapConfig,
-                                      ORBConfig, SlamConfig)
-    cfg = SlamConfig(
-        camera=CameraConfig(fx=267.7, fy=269.6, cx=160.0, cy=120.0,
-                            width=320, height=240, bf=20.0),
-        orb=ORBConfig(n_features=400, n_levels=4, max_keypoints=512),
-        line=LineConfig(max_lines=32),
-        map=MapConfig(max_points=4096, max_lines=512, max_planes=32,
-                      max_keyframes=32, vocab_words=512))
+    cfg = small_cfg()
     return cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, run_kf_culling=False, motion_search_radius=15.0,
         local_search_radius=6.0, loop_consistency=1))
@@ -1305,3 +1311,234 @@ def _sync(dev) -> None:
 
 def load_accuracy_fixture() -> dict:
     return load_npz(ACCURACY_FIXTURE)
+
+
+# --- reference behaviours: the capacity wall and the office world -----------
+BEHAVIOURS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "data", "behaviours.npz")
+WALL_KEYFRAMES = 12       # tests/test_long_run.py:20-46's keyframe slots
+WALL_FRAMES = 70          # its frames at 320x240
+WALL640_FRAMES = 48       # phase 13a's frames at 640x480 (~5 forced evictions)
+# At 640x480 the keyframe culling keeps 8-10 of the 12 slots live to call 69
+# (JAX's run), and the wall comes at call 70; phase 13a turns the culling
+# pass off, and from the eleventh keyframe on every insertion evicts.
+OFFICE_FRAMES = 40        # tests/test_transfer_validation.py:28-100
+OFFICE_BLACK = 3          # black frames after them: LOST
+OFFICE_REVISIT = 20       # then this frame again, up to OFFICE_TRIES times
+OFFICE_TRIES = 3
+OFFICE_ATE_MAX = 0.08     # the JAX tests' own acceptance
+OFFICE_RELOC_MAX = 0.10
+# the keyframe-insertion fields that `cull_one_keyframe` reads
+CULL_FIELDS = ("kf_mp", "kf_kp_valid", "kf_valid", "kf_seq", "pt_valid")
+
+
+def wall_cfg(cfg, culling: bool = True):
+    """tests/test_long_run.py's keyframe policy on `cfg` (either package's):
+    12 keyframe slots, a keyframe forced every 4 frames (min 3) and a
+    reference ratio of 0.995, so the map runs into its capacity and culling
+    must free slots; `culling=False` turns the culling pass off."""
+    import dataclasses
+
+    return cfg.replace(
+        map=dataclasses.replace(cfg.map, max_keyframes=WALL_KEYFRAMES),
+        tracking=dataclasses.replace(cfg.tracking, min_frames=3,
+                                     max_frames=4, kf_ref_ratio=0.995,
+                                     run_kf_culling=culling))
+
+
+def wall_sequence(cfg, n: int, device=None):
+    """The long-run corridor (2 cm per frame) at `cfg`'s camera."""
+    from dr_slam_torch.io.synthetic import (SyntheticSequence,
+                                            corridor_trajectory)
+    cam = cfg.camera
+    return SyntheticSequence(corridor_trajectory(n, step=0.02), K4=cam.K4,
+                             height=cam.height, width=cam.width,
+                             device=device)
+
+
+def office_cfg(cfg=None):
+    """tests/test_transfer_validation.py's camera on `cfg` (`small_cfg` by
+    default; either package's): fx 262, fy 258, cx 157, cy 118."""
+    import dataclasses
+
+    cfg = small_cfg() if cfg is None else cfg
+    return cfg.replace(camera=dataclasses.replace(
+        cfg.camera, fx=262.0, fy=258.0, cx=157.0, cy=118.0))
+
+
+def office_fixture_frames(data: dict, device=None):
+    """The behaviours fixture's office frames (gray uint8, depth uint16) as
+    the `System` takes them, float32 gray and depth in metres: numpy, or
+    tensors on `device`. -> (render(i) -> (gray, depth), the black pair)."""
+    gray = data["office_gray"].astype(np.float32)
+    depth = (data["office_depth"].astype(np.float32)
+             / np.float32(office_cfg().camera.depth_factor))
+    if device is not None:
+        gray, depth = (torch.from_numpy(x).to(device) for x in (gray, depth))
+    black = (gray[0] * 0,) * 2
+    return (lambda i: (gray[i], depth[i])), black
+
+
+def _host(x) -> np.ndarray:
+    return to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class BehaviourRecorder:
+    """Per call of a `System` of either package: the state code, the
+    keyframes inserted during the call, the reference keyframe slot, every
+    slot's insertion sequence, T_cw, the inliers, the live points and the
+    call's wall ms (synchronised with `sync`)."""
+
+    KEYS = ("state", "kf", "ref_kf", "kf_seq", "T_cw", "n_inliers", "n_pts",
+            "ms")
+
+    def __init__(self, system, sync=lambda: None):
+        self.system, self.sync = system, sync
+        self.rec = {k: [] for k in self.KEYS}
+
+    def track(self, gray, depth, ts: float, flush: bool = False):
+        tr = self.system.tracker
+        n_kf = len(tr.kf_log)
+        t0 = time.perf_counter()
+        res = self.system.track_rgbd(gray, depth, ts)
+        if flush:
+            tr.flush()
+        self.sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = tr.map_state
+        for k, v in (("state", tr.state.value if flush else res.state.value),
+                     ("kf", len(tr.kf_log) - n_kf), ("ref_kf", tr.ref_kf),
+                     ("kf_seq", _host(st.kf_seq).copy()),
+                     ("T_cw", _host(res.T_cw).astype(np.float32)),
+                     ("n_inliers", int(res.n_inliers)),
+                     ("n_pts", int(_host(st.n_pts))), ("ms", ms)):
+            self.rec[k].append(v)
+        return res
+
+    def arrays(self, prefix: str = "") -> dict:
+        return {prefix + k: np.asarray(v) for k, v in self.rec.items()}
+
+
+def wall_run(system, render, n: int, sync=lambda: None) -> dict:
+    """The capacity-wall scenario on a `System`: frames 0..n-1 of
+    `render(i) -> (gray, depth)`. -> the recorder's arrays."""
+    rec = BehaviourRecorder(system, sync)
+    for i in range(n):
+        rec.track(*render(i), i / 30.0)
+    return rec.arrays()
+
+
+def office_run(system, render, black, sync=lambda: None) -> dict:
+    """tests/test_transfer_validation.py's office scenario on a `System`:
+    OFFICE_FRAMES frames, a flush, OFFICE_BLACK black frames (`black`, a
+    (gray, depth) pair) and a flush, then frame OFFICE_REVISIT again, each
+    try flushed, until the tracker is OK or OFFICE_TRIES tries are spent.
+    The flushed calls record the tracker's state after the flush. -> the
+    recorder's arrays, with "reloc_call" the call that ended OK (-1:
+    none)."""
+    rec = BehaviourRecorder(system, sync)
+    n = OFFICE_FRAMES
+    for i in range(n):
+        rec.track(*render(i), i / 30.0, flush=i == n - 1)
+    for j in range(OFFICE_BLACK):
+        rec.track(*black, (n + j) / 30.0, flush=j == OFFICE_BLACK - 1)
+    reloc = -1
+    gray, depth = render(OFFICE_REVISIT)
+    for j in range(OFFICE_TRIES):
+        rec.track(gray, depth, (n + 4 + j) / 30.0, flush=True)
+        if rec.rec["state"][-1] == 2:     # OK
+            reloc = len(rec.rec["state"]) - 1
+            break
+    out = rec.arrays()
+    out["reloc_call"] = np.int32(reloc)
+    return out
+
+
+def centres(Ts) -> np.ndarray:
+    return np.asarray([np.linalg.inv(np.asarray(T, np.float64))[:3, 3]
+                       for T in Ts])
+
+
+def office_acceptance(out: dict, poses_cw: np.ndarray) -> dict:
+    """The JAX office tests' numbers on a run: LOST frames and ATE over the
+    tracked frames, whether the blackout ended LOST, and the relocalized
+    pose's distance from the ground truth in the map's frame (camera 0's).
+    """
+    from dr_slam_torch.io.metrics import ate_rmse
+
+    n, st = OFFICE_FRAMES, out["state"]
+    ate = float(ate_rmse(centres(out["T_cw"][:n]), centres(poses_cw[:n])))
+    call = int(out["reloc_call"])
+    err = float("inf")
+    if call >= 0:
+        T_gt = poses_cw[OFFICE_REVISIT] @ np.linalg.inv(poses_cw[0])
+        err = float(np.linalg.norm(centres([out["T_cw"][call]])[0]
+                                   - centres([T_gt])[0]))
+    return {"lost": int((st[:n] == 3).sum()), "ate": ate,
+            "blackout_lost": bool(st[n + OFFICE_BLACK - 1] == 3),
+            "reloc_try": call - n - OFFICE_BLACK if call >= 0 else -1,
+            "reloc_err": err}
+
+
+def behaviour_gaps(a: dict, b: dict,
+                   unheld_count_calls: tuple = ()) -> tuple[dict, list]:
+    """Run `b` against run `a` (both `BehaviourRecorder.arrays`): states,
+    keyframes, reference keyframes and every slot's insertion sequence
+    exact, T_cw within TRACKER_T_TOL per entry, inliers and live points
+    within TRACKER_COUNT_TOL on every call but `unheld_count_calls`
+    (measured there, not held). -> (numbers, failed checks)."""
+    if len(a["state"]) != len(b["state"]):
+        return {}, [f"{len(b['state'])} calls, want {len(a['state'])}"]
+    differ = {k: [int(i) for i in np.nonzero(
+        (a[k] != b[k]).reshape(len(a[k]), -1).any(1))[0]]
+        for k in ("state", "kf", "ref_kf", "kf_seq")}
+    dT = np.abs(a["T_cw"] - b["T_cw"]).max(axis=(1, 2))
+    rel = {k: np.abs(a[k] - b[k]) / np.maximum(a[k], 1)
+           for k in ("n_inliers", "n_pts")}
+    gaps = {"differ": differ, "dT_max": float(dT.max()),
+            "dT_over": [int(i) for i in np.nonzero(dT > TRACKER_T_TOL)[0]],
+            "rel": {k: float(v.max()) for k, v in rel.items()},
+            "count_over": {k: [[int(i), int(a[k][i]), int(b[k][i])]
+                               for i in np.nonzero(v > TRACKER_COUNT_TOL)[0]]
+                           for k, v in rel.items()}}
+    fails = [f"{k} differs at calls {v}" for k, v in differ.items() if v]
+    if gaps["dT_over"]:
+        fails.append(f"|dT_cw| over {TRACKER_T_TOL} at calls "
+                     f"{gaps['dT_over']} (max {gaps['dT_max']:.2e})")
+    fails += [f"{k} off by more than {TRACKER_COUNT_TOL} at [call, want, "
+              f"got] {held}" for k, v in gaps["count_over"].items()
+              if (held := [x for x in v if x[0] not in unheld_count_calls])]
+    return gaps, fails
+
+
+def load_behaviours_fixture() -> dict:
+    return load_npz(BEHAVIOURS_FIXTURE)
+
+
+def fixture_evictions(data: dict, prefix: str, cfg, dev,
+                      sync=lambda: None) -> tuple[list, list, list]:
+    """Each forced eviction the behaviours fixture stored under `prefix`
+    (JAX's map state compressed to `CULL_FIELDS`, on an empty state of
+    `cfg`) through the port's `cull_one_keyframe(force=True)` on `dev`.
+    -> (the slots it freed, JAX's, the ms of each call, synchronised with
+    `sync`)."""
+    from dr_slam_torch.io.map_io import from_jax_state
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.state import make_empty_state
+
+    empty = {k: to_numpy(v) for k, v in
+             make_empty_state(cfg, "cpu")._asdict().items()}
+    got, ms = [], []
+    for e in range(len(data[f"{prefix}call"])):
+        fields = dict(empty, **{f: data[f"{prefix}{f}"][e]
+                                for f in CULL_FIELDS})
+        fields["n_kfs"] = np.int32(fields["kf_valid"].sum())
+        st = from_jax_state(fields, dev)
+        sync()
+        t0 = time.perf_counter()
+        out = map_ops.cull_one_keyframe(st, force=True)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(np.nonzero(fields["kf_valid"]
+                              & ~to_numpy(out.kf_valid))[0].tolist())
+    return got, [[int(s)] for s in data[f"{prefix}slot"]], ms

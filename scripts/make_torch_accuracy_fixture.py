@@ -6,8 +6,8 @@ port's own: after each frame the JAX `System` waits for its pending
 frames' bundles (tests/torch_parity.py: `jax_system_lagged_by_one`), so the
 deferred decision lags by exactly one frame, as the port's does when each
 frame is synchronised; and the tracked pose's rotation is projected onto
-SO(3) after the second pose solve (`projected_tracked_pose`), as the port's
-`slam/track_step.py` does. The script itself, without either rule, runs
+SO(3) after the second pose solve (`projected_tracked_pose` of
+tests/torch_parity.py), as the port's `slam/track_step.py` does. The script itself, without either rule, runs
 beside it in its own process; the fixture keeps its line too. The protocol: the loop configuration at 320x240, a
 circular path of 200 frames and then its first 70 again, a codebook
 trained on frames 0, 13, ..., 195 and registered, a `System` with loop
@@ -46,33 +46,6 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import numpy as np  # noqa: E402
 
 
-@contextlib.contextmanager
-def projected_tracked_pose():
-    """Patch the JAX track_step for the block: the pose of its second
-    (structural) pose solve gets its rotation projected onto SO(3) with
-    `se3.orthonormalize_rotation`, so the pose, the velocity, the Manhattan
-    rotation and the bundle that follow from it are the projected pose's,
-    as in the port's `slam/track_step.py`. Patch before the first trace."""
-    from dr_slam_tpu.geometry import se3
-    from dr_slam_tpu.slam import track_step as ts
-
-    solve = ts.pose_optimize
-
-    def projected(*a, struct_on=False, **kw):
-        out = solve(*a, struct_on=struct_on, **kw)
-        if not struct_on:
-            return out
-        T = out.T_cw
-        return out._replace(T_cw=se3.make_T(
-            se3.orthonormalize_rotation(T[:3, :3]), T[:3, 3]))
-
-    ts.pose_optimize = projected
-    try:
-        yield
-    finally:
-        ts.pose_optimize = solve
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
@@ -82,7 +55,8 @@ def main() -> None:
     from dr_slam_tpu.associate import vocabulary as voc
     from dr_slam_tpu.io import synthetic
     from dr_slam_torch._smoke import loop_events
-    from torch_parity import jax_system_lagged_by_one, load_script
+    from torch_parity import (jax_system_lagged_by_one, load_script,
+                              projected_tracked_pose)
 
     bench = load_script("bench_accuracy")
     registered = []

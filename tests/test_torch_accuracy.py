@@ -37,28 +37,9 @@ import torch
 
 from dr_slam_torch import _smoke
 
+from torch_parity import JaxRenders as _JaxRenders
+
 N_FRAMES = 125
-
-
-class _JaxRenders:
-    """The protocol's sequence (`_smoke.accuracy_sequence`) with JAX's
-    renders of its poses."""
-
-    def __init__(self, device, port_sequence=_smoke.accuracy_sequence):
-        from dr_slam_tpu.io.synthetic import SyntheticSequence
-
-        port = port_sequence(device)
-        self.poses_cw, self.device = port.poses_cw, port.device
-        self.port = port
-        self.jax = SyntheticSequence(self.poses_cw, K4=port.K4,
-                                     height=port.height, width=port.width)
-
-    def __len__(self):
-        return len(self.poses_cw)
-
-    def render(self, i):
-        return tuple(torch.from_numpy(np.array(x, np.float32))
-                     for x in self.jax.render(i))
 
 
 def _orth_err(T):

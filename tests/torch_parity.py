@@ -15,6 +15,7 @@ import torch
 
 from dr_slam_tpu.config import (CameraConfig, LineConfig, MapConfig, ORBConfig,
                                 SlamConfig)
+from dr_slam_torch import _smoke
 from dr_slam_torch import config as tconfig
 from dr_slam_torch.frontend.frame import FrameFeatures
 from dr_slam_torch.io.map_io import from_jax_state
@@ -157,6 +158,47 @@ def carry_to_port(carry, prefix: str = "", device="cpu"):
     return LoopCarry(map_state=st, **{k: scalar(k) for k in CARRY_SCALARS})
 
 
+TRACKER_HOST = ("last_kf_frame", "ref_kf", "frame_id", "only_tracking",
+                "_seq_counter", "_last_inliers", "_last_matches",
+                "_last_man_ok", "_reloc_failures", "_n_kfs_host", "_map_gen",
+                "_hard_gen")
+
+
+def out_to_port(out):
+    """A JAX `TrackStepOut` -> the port's, on the CPU, bit for bit."""
+    from dr_slam_torch.slam.track_step import TrackStepOut
+
+    return TrackStepOut(**{k: state_to_port(v) if k == "new_map_state"
+                           else tensor(v) for k, v in out._asdict().items()})
+
+
+def tracker_to_port(jt, pt) -> None:
+    """Seat a JAX `Tracker`'s state in the port's `Tracker` `pt` between two
+    frames: the map, the pose, velocity and Manhattan rotation, the host
+    bookkeeping, and each pending deferred frame (its features, its track
+    step's outputs and the poses to roll back to), so that `pt`'s next
+    frame resolves what the JAX tracker's next frame would."""
+    from dr_slam_torch.slam.tracking import TrackState, _HostBundle
+
+    pt.map_state = state_to_port(jt.map_state)
+    pt.T_cw, pt.velocity, pt.R_cm = (tensor(x) for x in
+                                     (jt.T_cw, jt.velocity, jt.R_cm))
+    pt.state = TrackState[jt.state.name]
+    for k in TRACKER_HOST:
+        setattr(pt, k, getattr(jt, k))
+    for k in ("kf_pose_host", "kf_seq_host", "kf_odom_host"):
+        setattr(pt, k, dict(getattr(jt, k)))
+    pt.trajectory = [(ts, np.asarray(T)) for ts, T in jt.trajectory]
+    pt.kf_log = list(jt.kf_log)
+    pt._ref_kf_cache = None
+    pt._pending.clear()
+    for (ts, feats, out, T_prev, R_prev, fid, loc, gen, hard) in jt._pending:
+        o = out_to_port(out)
+        pt._pending.append((ts, feats_to_port(feats), o, _HostBundle(o.bundle),
+                            tensor(T_prev), tensor(R_prev), fid, loc, gen,
+                            hard))
+
+
 def assert_states_match(jst, tst, atol: float, fields=None) -> None:
     """Integer and bool fields exactly equal, float fields within atol."""
     for f in fields or jst._fields:
@@ -193,6 +235,33 @@ def jax_system_lagged_by_one():
         System.track_rgbd = track
 
 
+@contextlib.contextmanager
+def projected_tracked_pose():
+    """Patch the JAX track_step for the block: the pose of its second
+    (structural) pose solve gets its rotation projected onto SO(3) with
+    `se3.orthonormalize_rotation`, so the pose, the velocity, the Manhattan
+    rotation and the bundle that follow from it are the projected pose's,
+    as in the port's `slam/track_step.py`. Patch before the first trace."""
+    from dr_slam_tpu.geometry import se3
+    from dr_slam_tpu.slam import track_step as ts
+
+    solve = ts.pose_optimize
+
+    def projected(*a, struct_on=False, **kw):
+        out = solve(*a, struct_on=struct_on, **kw)
+        if not struct_on:
+            return out
+        T = out.T_cw
+        return out._replace(T_cw=se3.make_T(
+            se3.orthonormalize_rotation(T[:3, :3]), T[:3, 3]))
+
+    ts.pose_optimize = projected
+    try:
+        yield
+    finally:
+        ts.pose_optimize = solve
+
+
 def load_script(name: str):
     """scripts/<name>.py as a module."""
     import importlib.util
@@ -226,3 +295,166 @@ def write_small_yaml(path) -> str:
     with open(path, "w") as f:
         f.write("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in keys.items()))
     return str(path)
+
+
+def jax_wall_sequence(cfg, n: int):
+    """`_smoke.wall_sequence` rendered by the JAX package."""
+    from dr_slam_tpu.io import synthetic
+
+    cam = cfg.camera
+    return synthetic.SyntheticSequence(
+        synthetic.corridor_trajectory(n, step=0.02), K4=cam.K4,
+        height=cam.height, width=cam.width)
+
+
+def jax_office_sequence():
+    """The office world of tests/test_transfer_validation.py rendered by
+    the JAX package: the box room with wall-seated clutter, the corridor
+    path at 1.5 cm per frame and Kinect-like quadratic depth noise."""
+    from dr_slam_tpu.io import synthetic
+
+    cam = _smoke.office_cfg(small_cfg()).camera
+    room = synthetic.BoxRoom()
+    return synthetic.SyntheticSequence(
+        synthetic.corridor_trajectory(_smoke.OFFICE_FRAMES, room=room,
+                                      step=0.015),
+        K4=cam.K4, height=cam.height, width=cam.width, room=room,
+        boxes=synthetic.office_clutter(room), depth_noise=True,
+        quadratic_noise=True)
+
+
+def numpy_frames(seq, n: int) -> list:
+    """Frames 0..n-1 of a JAX sequence as float32 numpy (gray, depth)."""
+    return [tuple(np.asarray(x, np.float32) for x in seq.render(i))
+            for i in range(n)]
+
+
+WALL_STAGES = ("add_keyframe", "cull_map", "triangulate_with_kf",
+               "fuse_new_points", "map_ba", "cull_one_keyframe")
+
+
+def _snap(x):
+    """A JAX array or pytree of them as numpy (a copy: the JAX map
+    operations donate their inputs); anything else as it is."""
+    import jax
+
+    if isinstance(x, tuple) or hasattr(x, "shape"):
+        return jax.tree_util.tree_map(np.array, x)
+    return x
+
+
+@contextlib.contextmanager
+def recorded_jax_passes(calls: set, counter: list):
+    """Record every stage of the JAX `Tracker`'s keyframe pass (the
+    `WALL_STAGES`: its map operations and `Tracker._map_ba`) while
+    `counter[0]`, the caller's call index, is in `calls`: a list of (call,
+    stage, args, kwargs, output), all as numpy (`_snap`)."""
+    from dr_slam_tpu.slam import map_ops as jm
+    from dr_slam_tpu.slam.tracking import Tracker
+
+    log, saved = [], {n: getattr(jm, n) for n in WALL_STAGES if n != "map_ba"}
+    map_ba = Tracker._map_ba
+
+    def wrap(name, fn):
+        def recorded(*a, **kw):
+            if counter[0] not in calls:
+                return fn(*a, **kw)
+            args = [_snap(x) for x in a]
+            kws = {k: _snap(v) for k, v in kw.items()}
+            out = fn(*a, **kw)
+            log.append((counter[0], name, args, kws,
+                        _snap(out[0] if name == "add_keyframe" else out)))
+            return out
+        return recorded
+
+    def recorded_ba(self, center_kf=None):
+        if counter[0] not in calls:
+            return map_ba(self, center_kf=center_kf)
+        before = _snap(self.map_state)
+        map_ba(self, center_kf=center_kf)
+        log.append((counter[0], "map_ba", [before],
+                    {"center_kf": _snap(center_kf)}, _snap(self.map_state)))
+
+    for n, fn in saved.items():
+        setattr(jm, n, wrap(n, fn))
+    Tracker._map_ba = recorded_ba
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(jm, n, fn)
+        Tracker._map_ba = map_ba
+
+
+def port_stage(name: str, args: list, kw: dict, tcfg):
+    """The port's counterpart of a stage `recorded_jax_passes` recorded, on
+    the recorded (JAX) inputs. -> the map state it returns."""
+    from dr_slam_torch.slam import map_ops as tm
+    from dr_slam_torch.slam.tracking import map_ba
+
+    st = state_to_port(args[0])
+
+    def slot(x):
+        return torch.as_tensor(np.asarray(x)).long()
+
+    if name == "add_keyframe":
+        _, feats, T, ts, mp, pm, lm, bow = args[:8]
+        blocked = kw.get("blocked")
+        return tm.add_keyframe(
+            st, feats_to_port(feats), tensor(T), ts, tensor(mp),
+            tm.PlaneMatches(*(tensor(x) for x in pm)), tensor(lm),
+            tensor(bow), tcfg,
+            blocked=None if blocked is None else tensor(blocked))[0]
+    if name == "triangulate_with_kf":
+        return tm.triangulate_with_kf(st, slot(args[1]), slot(args[2]),
+                                      args[3], **kw)
+    if name == "fuse_new_points":
+        return tm.fuse_new_points(st, slot(args[1]), **kw)
+    if name == "map_ba":
+        return map_ba(st, tcfg, center_kf=slot(kw["center_kf"]))
+    return getattr(tm, name)(st, **kw)
+
+
+def run_both_systems(cfg, frames, before=None, flush_last: bool = False):
+    """The JAX `System` (lagged by one frame, rotations projected onto
+    SO(3)) and the port's, on the CPU, over the same numpy frames, each call
+    recorded by `_smoke.BehaviourRecorder`. `before(i, jax_system,
+    port_system)` runs before call i; with `flush_last` the last call is
+    flushed. Capping torch's threads is the caller's. -> (jax arrays, port
+    arrays, jax System, port System)."""
+    from dr_slam_torch.slam.system import System as TSystem
+    from dr_slam_tpu.slam.system import System
+
+    with projected_tracked_pose(), jax_system_lagged_by_one():
+        systems = (System(cfg, enable_loop_closing=False),
+                   TSystem(to_port(cfg), enable_loop_closing=False,
+                           device="cpu"))
+        recs = [_smoke.BehaviourRecorder(s) for s in systems]
+        for i, (g, d) in enumerate(frames):
+            if before is not None:
+                before(i, *systems)
+            for r in recs:
+                r.track(g, d, i / 30.0, flush=flush_last
+                        and i == len(frames) - 1)
+    return (*(r.arrays() for r in recs), *systems)
+
+
+class JaxRenders:
+    """The protocol's sequence (`_smoke.accuracy_sequence`) with JAX's
+    renders of its poses."""
+
+    def __init__(self, device, port_sequence=_smoke.accuracy_sequence):
+        from dr_slam_tpu.io.synthetic import SyntheticSequence
+
+        port = port_sequence(device)
+        self.poses_cw, self.device = port.poses_cw, port.device
+        self.port = port
+        self.jax = SyntheticSequence(self.poses_cw, K4=port.K4,
+                                     height=port.height, width=port.width)
+
+    def __len__(self):
+        return len(self.poses_cw)
+
+    def render(self, i):
+        return tuple(torch.from_numpy(np.array(x, np.float32))
+                     for x in self.jax.render(i))
