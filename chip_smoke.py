@@ -23,9 +23,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    CUDA events (device time, without the host's ctypes call), beside 200
    eager launches back to back, 200 wrapper calls and 10 calls of the plain
    version, each divided by its count, and the device time of each of its
-   three CUDA kernels from torch.profiler. Last, a pipelined
-   loop of 16 frames (the four frames cycled, as bench.py's
-   bench_odometry does) is timed.
+   three CUDA kernels from torch.profiler. The pipelined loop (the frames
+   cycled, as bench.py's bench_odometry does) is timed in phase 14a.
 4. tracker: `Tracker(cfg, device="cuda").process_frame` from an empty map
    over the 24 frames of dr_slam_torch/data/mapping_corridor.npz (made by
    scripts/make_torch_mapping_fixture.py), in the default deferred mode
@@ -197,6 +196,34 @@ Phases (any failure exits non-zero, and the result line is not printed):
    readbacks exactly on JAX's wall steps (one elsewhere). The kernel is
    held against its plain version on both launches of 13a's first wall
    call and on every launch of 13b's relocalized call.
+14. bench legs: bench_torch.py's legs on the card at cut depths, against
+   the JAX package's runs of bench.py's loops in dr_slam_torch/data/
+   bench_runs.npz (made by scripts/make_torch_bench_fixture.py, with the
+   port's two rules on the JAX side: the decision lagged by one frame,
+   rotations projected onto SO(3)). 14a: `bench_odometry` on the mapping
+   fixture's frames 0-15 (JAX's renders): its map of frames 0-11, loaded
+   back from its file, equal to the `System`'s own and held against the
+   JAX map of the same frames (live keyframes exact, points within 2%,
+   keyframe poses within TRACKER_T_TOL), then one pipelined window of
+   PIPELINE_FRAMES frames (the pipelined frames/s of this script) at
+   exactly 2 launches per frame, and the synchronising calls of one more
+   pipelined frame counted under `torch.cuda.set_sync_debug_mode` (printed
+   only; its 2 launches counted). 14b: `bench_tracking` over its 60
+   frames, fed the fixture's (JAX's renders as uint8 gray and uint16
+   depth: on the port's own float renders T_cw moves 4.3e-3 from JAX's on
+   JAX's, and four frames' inliers 2-4.5%, scripts/parity_bench_torch.py);
+   14c: `bench_interactive_device` over BENCH_DEVICE_FRAMES frames after
+   BENCH_DEVICE_WARM warm-up frames of the port's renders, through its
+   pinned, double-buffered copies. Both held as phases 4 and 7: states,
+   keyframes and reference keyframes exact, T_cw within TRACKER_T_TOL,
+   counts within 2% (the inliers of `_smoke.BENCH_PYRAMID_FRAMES`, where
+   the JAX package's jitted ORB pyramid alone moves them, are printed and
+   held by their witnesses on the CPU, tests/test_torch_bench.py), ATE under
+   BENCH_ATE_MAX and within 2x + 5 mm of JAX's, 2 launches per tracked
+   frame. 14d: `bench_frontend` over 30 frames, valid keypoints within 2%
+   of JAX's. The kernel is held against its plain version on 14b's call
+   BENCH_KEPT_CALL. Prints each leg's frames/s and the device loop's
+   readbacks per step.
 
 Phases 3-4 and 6-9 run with the shipped codebooks registered, as the JAX
 runs that made the fixtures had them (a bare Tracker or DeviceLoopTracker
@@ -205,7 +232,8 @@ registers none; the System registers them itself).
 The kernel table's `launches` adds the main path's, the tracker's, the two
 System scenarios', the loop phase's, the device loop's, the multi-sequence
 phase's, the runner's and node's, the detector System's, the synthetic
-run script's, the accuracy protocol's and the three behaviour runs'.
+run script's, the accuracy protocol's, the three behaviour runs' and the
+three bench legs' that track (odometry, tracking, device loop).
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -240,8 +268,9 @@ def fail(msg: str) -> None:
 # by 2%.
 T_TOL = 1e-3          # max |T_cw - T_cw_jax| entry (rotation, meters)
 COUNT_TOL = 0.02      # |n_matches - jax|, |n_inliers - jax| over the jax count
-# 16, not bench_odometry's 240: at about 1 s a frame on the host, the
-# loop would take most of the run's time limit as the phases grow
+# phase 14a's pipelined window: 16 frames, not bench_odometry's 240: at
+# about 1 s a frame on the host, the window would take most of the run's
+# time limit as the phases grow
 PIPELINE_FRAMES = 16
 
 # Where the TPU kernel that the CUDA kernel replaces lives, in the JAX
@@ -1924,6 +1953,244 @@ def behaviours_phase(dev, card: str) -> tuple[dict, float]:
     return launches, err
 
 
+BENCH_TRACKING_FRAMES = 60   # bench.py's bench_tracking length, uncut
+BENCH_DEVICE_FRAMES = 48     # bench_interactive_device: 120 in bench.py
+BENCH_DEVICE_WARM = 25
+BENCH_FRONTEND_FRAMES = 30
+BENCH_KEPT_CALL = 40         # 14b's call whose matcher inputs are held
+BENCH_ATE_MAX = 0.05         # the legs' ATE (m), as run_synthetic's bound
+
+
+def _sync_calls(torch, fn) -> int:
+    """The synchronising CUDA calls `fn` makes, counted as the warnings of
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _hold_counts(got, want, what: str, fails: list) -> float:
+    """Counts within TRACKER_COUNT_TOL of JAX's. -> the largest relative
+    gap."""
+    from dr_slam_torch._smoke import TRACKER_COUNT_TOL, count_gaps
+
+    rel = count_gaps(got, want)
+    over = [int(i) for i in (rel > TRACKER_COUNT_TOL).nonzero()[0]]
+    if over:
+        fails.append(f"{what} off by more than {TRACKER_COUNT_TOL} at "
+                     f"{over}: {[int(got[i]) for i in over]}, JAX "
+                     f"{[int(want[i]) for i in over]}")
+    return float(rel.max()) if rel.size else 0.0
+
+
+def _hold_ate(T_cws, want_T_cws, poses, what: str, fails: list) -> tuple:
+    """ATE under BENCH_ATE_MAX and within 2x + 5 mm of JAX's on the same
+    poses. -> (ATE, JAX's ATE)."""
+    from dr_slam_torch._smoke import trajectory_ate
+
+    ate = trajectory_ate(T_cws, poses)
+    want = trajectory_ate(want_T_cws, poses)
+    if not (ate < BENCH_ATE_MAX and ate <= 2 * want + 0.005):
+        fails.append(f"{what} ATE {ate:.5f} m (JAX {want:.5f})")
+    return ate, want
+
+
+def bench_phase(dev, card: str) -> tuple[dict, float]:
+    """Phase 14: bench_torch.py's legs on the card at cut depths, each held
+    against the JAX package's run of the same loop in
+    dr_slam_torch/data/bench_runs.npz. 14a: the odometry leg on the mapping
+    fixture's frames 0-15, its map against smoke_corridor.npz's, one
+    pipelined window of PIPELINE_FRAMES frames; 14b: the tracking leg over
+    its 60 frames; 14c: the device-loop leg over BENCH_DEVICE_FRAMES frames
+    after BENCH_DEVICE_WARM; 14d: the front-end leg. -> (matcher launches
+    per leg, the kernel's max abs error)."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from dr_slam_torch import _smoke
+    from dr_slam_torch.config import tum_freiburg3
+    from dr_slam_torch.io import synthetic
+    from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.slam import map_ops
+    from dr_slam_torch.slam.track_step import extract_and_track
+
+    cfg = tum_freiburg3()
+    data = _smoke.load_bench_fixture()
+    launches, fails = {}, []
+    counter = match_cuda.gated_top2_hamming
+
+    # 14a: the odometry leg's map from JAX's frames, then one window
+    mdata = _smoke.load_mapping_fixture()
+    df = cfg.camera.depth_factor
+    frames = [(mdata["gray"][i].astype(np.float32),
+               mdata["depth"][i].astype(np.float32) / df)
+              for i in range(bench_torch.ODOMETRY_FRAMES)]
+    counter.launches = 0
+    odo = bench_torch.bench_odometry(PIPELINE_FRAMES, cfg, dev, frames,
+                                     windows=1)
+    rec = odo.record
+    got_map = rec["loaded_map"]
+    for name in got_map._fields:
+        a, b = getattr(got_map, name), getattr(rec["system_map"], name)
+        if not torch.equal(a, b):
+            fails.append(f"14a: the loaded map's {name} differs from the "
+                         "System's")
+    kf_valid = got_map.kf_valid.cpu().numpy()
+    want_valid = data["odo_kf_valid"]
+    n_pts, want_pts = int(got_map.pt_valid.sum()), int(data["odo_n_pts"])
+    dpose = float(np.abs(got_map.kf_pose.cpu().numpy()
+                         - data["odo_kf_pose"])[want_valid].max())
+    if not np.array_equal(kf_valid, want_valid):
+        fails.append(f"14a: kf_valid {np.nonzero(kf_valid)[0].tolist()}, JAX "
+                     f"{np.nonzero(want_valid)[0].tolist()}")
+    _hold_counts([n_pts], [want_pts], "14a: map points", fails)
+    if dpose > _smoke.TRACKER_T_TOL:
+        fails.append(f"14a: keyframe poses {dpose:.2e} from JAX's")
+    # smoke_corridor.npz's map: the same frames' float renders, built by JAX
+    # without the lag rule and flushed (printed, not held)
+    smoke_pts = int(_smoke.load_npz(_smoke.FIXTURE)["map__pt_valid"].sum())
+    out = rec["out"]
+    if (rec["launches"] != [2 * PIPELINE_FRAMES]
+            or not bool(torch.isfinite(out.T_cw).all())):
+        fails.append(f"14a: window launches {rec['launches']}, want "
+                     f"{2 * PIPELINE_FRAMES}, finite pose "
+                     f"{bool(torch.isfinite(out.T_cw).all())}")
+    st, T, R = rec["start"]
+    g, d = rec["staged"][0]
+    eye = torch.eye(4, device=dev)
+    ref = torch.tensor(1, device=dev)
+    syncs = _sync_calls(torch, lambda: extract_and_track(
+        g, d, st, T, eye, R, ref, cfg, device=dev))
+    launches["odometry"] = counter.launches
+    print(f"[bench] 14a odometry: map of frames 0-11 {int(kf_valid.sum())} "
+          f"keyframes (JAX {int(want_valid.sum())}), {n_pts} points (JAX "
+          f"{want_pts}; smoke_corridor.npz's unlagged map {smoke_pts}), "
+          f"keyframe poses {dpose:.2e} from JAX's, loaded map equal to the "
+          f"System's; {PIPELINE_FRAMES} pipelined frames "
+          f"{odo.fps:.3f} frames/s, last frame n_inliers "
+          f"{int(out.n_inliers)} n_matches {int(out.n_matches)}, launches "
+          f"{rec['launches']}; {syncs} synchronising calls in one pipelined "
+          f"frame (torch.cuda.set_sync_debug_mode) on {card}", flush=True)
+
+    # 14b: the tracking leg over the fixture's frames, JAX's renders: on the
+    # port's own the pose moves 4.3e-3 (scripts/parity_bench_torch.py)
+    kernel, kept, calls = map_ops.gated_top2_hamming, [], [0]
+
+    def keep(*a):
+        calls[0] += 1
+        if calls[0] == 2 * BENCH_KEPT_CALL - 1:
+            kept.append(tuple(x.clone() for x in a))
+        return kernel(*a)
+
+    map_ops.gated_top2_hamming = keep
+    counter.launches = 0
+    try:
+        trk = bench_torch.bench_tracking(
+            BENCH_TRACKING_FRAMES, cfg, dev,
+            _smoke.bench_fixture_frames(data, df))
+    finally:
+        map_ops.gated_top2_hamming = kernel
+    launches["tracking"] = counter.launches
+    got, n = trk.record, BENCH_TRACKING_FRAMES
+    want = {k: data[f"trk_{k}"][:n] for k in
+            ("state", "is_keyframe", "ref_kf", "T_cw", "n_inliers",
+             "n_matches")}
+    want["kf_frames"] = data["trk_kf_frames"]
+    for k in ("state", "is_keyframe", "ref_kf", "kf_frames"):
+        if not np.array_equal(got[k], want[k]):
+            fails.append(f"14b: {k} {got[k].astype(int).tolist()}, JAX "
+                         f"{want[k].astype(int).tolist()}")
+    dT = float(np.abs(got["T_cw"] - want["T_cw"]).max())
+    if dT > _smoke.TRACKER_T_TOL:
+        fails.append(f"14b: |dT_cw| {dT:.2e} > {_smoke.TRACKER_T_TOL}")
+    held = _smoke.bench_inliers_held(n, lag=1)
+    rel = max(_hold_counts(got["n_inliers"][held], want["n_inliers"][held],
+                           "14b: n_inliers", fails),
+              _hold_counts(got["n_matches"], want["n_matches"],
+                           "14b: n_matches", fails))
+    pyramid = [(int(i), int(got["n_inliers"][i]), int(want["n_inliers"][i]))
+               for i in np.nonzero(~held)[0]]
+    if got["n_kfs"] != int(data["trk_n_kfs"]):
+        fails.append(f"14b: {got['n_kfs']} keyframes, JAX "
+                     f"{int(data['trk_n_kfs'])}")
+    _hold_counts([got["n_pts"]], [int(data["trk_n_pts"])], "14b: points",
+                 fails)
+    poses = synthetic.corridor_trajectory(n)
+    ate, jax_ate = _hold_ate(got["T_cw"], want["T_cw"], poses, "14b", fails)
+    want_launches = [0] + [2] * (n - 1)
+    if got["launches"].tolist() != want_launches:
+        fails.append(f"14b: launches per frame {got['launches'].tolist()}")
+    print(f"[bench] 14b tracking: {n} frames, "
+          f"{got['warm']} warm, {trk.fps:.3f} frames/s timed; keyframes at "
+          f"{got['kf_frames'].tolist()} (JAX "
+          f"{data['trk_kf_frames'].tolist()}), |dT_cw| {dT:.2e}, counts "
+          f"within {rel:.4f} (inliers on the pyramid's frames, held by "
+          f"their witness on the CPU: (record, port, JAX) {pyramid}), "
+          f"{got['n_pts']} points (JAX "
+          f"{int(data['trk_n_pts'])}), ATE {ate:.5f} m (JAX {jax_ate:.5f}), "
+          f"launches {launches['tracking']} on {card}", flush=True)
+    err = _hold_calls(kept, f"14b call {BENCH_KEPT_CALL}", torch, dev)
+
+    # 14c: the device-loop leg with its staged copies
+    counter.launches = 0
+    dl = bench_torch.bench_interactive_device(
+        BENCH_DEVICE_FRAMES, BENCH_DEVICE_WARM, cfg, dev)
+    launches["device loop"] = counter.launches
+    got, want = dl.record["records"], data["dl_records"][:BENCH_DEVICE_FRAMES]
+    for k, name in _smoke.DEVICE_LOOP_EXACT.items():
+        if not np.array_equal(got[:, k], want[:, k]):
+            fails.append(f"14c: {name} {got[:, k].astype(int).tolist()}, JAX "
+                         f"{want[:, k].astype(int).tolist()}")
+    dT = float(np.abs(got[:, :16] - want[:, :16]).max())
+    if dT > _smoke.TRACKER_T_TOL:
+        fails.append(f"14c: |dT_cw| {dT:.2e} > {_smoke.TRACKER_T_TOL}")
+    held = _smoke.bench_inliers_held(len(got))
+    rel = max(_hold_counts(got[:, 17][held], want[:, 17][held],
+                           "14c: n_inliers", fails),
+              _hold_counts(got[:, 18], want[:, 18], "14c: n_matches", fails))
+    pyramid = [(int(f), int(got[f, 17]), int(want[f, 17]))
+               for f in np.nonzero(~held)[0]]
+    poses = synthetic.corridor_trajectory(BENCH_DEVICE_FRAMES)
+    ate, jax_ate = _hold_ate(got[:, :16].reshape(-1, 4, 4),
+                             want[:, :16].reshape(-1, 4, 4), poses, "14c",
+                             fails)
+    want_launches = _smoke.expected_launches(dl.record["states"],
+                                             dl.record["relocs"])
+    if dl.record["launches"].tolist() != want_launches:
+        fails.append(f"14c: launches per step {dl.record['launches'].tolist()}"
+                     f", want {want_launches}")
+    print(f"[bench] 14c device loop: {BENCH_DEVICE_FRAMES} frames, "
+          f"{BENCH_DEVICE_WARM} warm, {dl.fps:.3f} frames/s through the "
+          f"pinned, double-buffered copies; keyframes at "
+          f"{np.nonzero(got[:, 19])[0].tolist()}, |dT_cw| {dT:.2e}, counts "
+          f"within {rel:.4f} (inliers on the pyramid's frames, held by "
+          f"their witness on the CPU: (frame, port, JAX) {pyramid}), ATE "
+          f"{ate:.5f} m (JAX {jax_ate:.5f}), readbacks "
+          f"per step {dl.record['readbacks'].tolist()}, launches "
+          f"{launches['device loop']} on {card}", flush=True)
+
+    # 14d: the front-end leg
+    fe = bench_torch.bench_frontend(BENCH_FRONTEND_FRAMES, device=dev)
+    rel = _hold_counts(fe.record["n_valid"],
+                       data["fe_n_valid"][:BENCH_FRONTEND_FRAMES],
+                       "14d: valid keypoints", fails)
+    print(f"[bench] 14d front-end: {BENCH_FRONTEND_FRAMES} frames "
+          f"{fe.fps:.3f} frames/s, valid keypoints within {rel:.4f} of JAX's "
+          f"on {card}", flush=True)
+    if fails:
+        fail("bench phase: " + "; ".join(fails))
+    return launches, err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1936,7 +2203,7 @@ def main() -> None:
     import numpy as np
 
     from dr_slam_torch._smoke import (card_line, load_fixture,
-                                      load_mapping_fixture, pipelined,
+                                      load_mapping_fixture,
                                       register_shipped_codebooks, run_tracker,
                                       synthetic_matcher_inputs, tracker_gaps)
     from dr_slam_torch.config import tum_freiburg3
@@ -2072,21 +2339,6 @@ def main() -> None:
           f"{bound_by}) on {card}; device ms by kernel {json.dumps(split)}",
           flush=True)
 
-    # pipelined loop: frames enqueued back to back, one sync at the end
-    match_cuda.gated_top2_hamming.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = pipelined(fx, PIPELINE_FRAMES, cfg)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if match_cuda.gated_top2_hamming.launches != 2 * PIPELINE_FRAMES:
-        fail("pipelined loop did not launch the kernel twice per frame")
-    if not bool(torch.isfinite(out.T_cw).all()):
-        fail("pipelined loop produced a non-finite pose")
-    print(f"[pipeline] {PIPELINE_FRAMES} frames in {dt:.2f} s = "
-          f"{PIPELINE_FRAMES / dt:.2f} frames/s ({dt / PIPELINE_FRAMES * 1e3:.1f}"
-          f" ms/frame) at 640x480 on {card}", flush=True)
-
     # --- 4. tracker from an empty map ------------------------------------------
     mdata = load_mapping_fixture()
     torch.cuda.reset_peak_memory_stats()
@@ -2154,6 +2406,9 @@ def main() -> None:
     # --- 13. the reference behaviours: the wall, the office, the loop's wall -
     behaviour_launches, err13 = behaviours_phase(dev, card)
     err = max(err, err13)
+    # --- 14. bench_torch.py's legs ---------------------------------------------
+    bench_launches, err14 = bench_phase(dev, card)
+    err = max(err, err14)
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
           f"{system_launches['b']}, loop {loop_launches}, device loop "
@@ -2161,14 +2416,15 @@ def main() -> None:
           f"{tum_launches['runner']}, node {tum_launches['node']}, detector "
           f"System {detect_launches}, run_synthetic {synth_launches}, "
           f"accuracy protocol {accuracy_launches}, behaviours "
-          f"{json.dumps(behaviour_launches)} (the pipelined timing loop's "
-          f"{2 * PIPELINE_FRAMES} not counted)", flush=True)
+          f"{json.dumps(behaviour_launches)}, bench legs "
+          f"{json.dumps(bench_launches)}", flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
                       + device_loop_launches + multi_launches
                       + sum(tum_launches.values()) + detect_launches
                       + synth_launches + accuracy_launches
-                      + sum(behaviour_launches.values()))
+                      + sum(behaviour_launches.values())
+                      + sum(bench_launches.values()))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

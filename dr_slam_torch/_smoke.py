@@ -248,6 +248,13 @@ TRACKER_T_TOL = 3e-3     # max |T_cw - T_cw_jax| entry over the frames
 TRACKER_COUNT_TOL = 0.02  # |n_inliers|, |n_matches|, |n_pts| vs jax, relative
 
 
+def count_gaps(got, want) -> np.ndarray:
+    """Each count's distance from JAX's over JAX's (at least 1): what
+    TRACKER_COUNT_TOL bounds."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want) / np.maximum(want, 1)
+
+
 def tracker_gaps(run: TrackerRun, data: dict, t0: float = 0.0
                  ) -> tuple[dict, list]:
     """The run's distances from the JAX outputs, and the failed checks
@@ -1459,15 +1466,21 @@ def centres(Ts) -> np.ndarray:
                        for T in Ts])
 
 
+def trajectory_ate(T_cws, poses_cw) -> float:
+    """ATE (Umeyama-aligned, fixed scale) of the camera centres of the
+    poses `T_cws` against the first len(T_cws) true poses `poses_cw`."""
+    from dr_slam_torch.io.metrics import ate_rmse
+
+    return float(ate_rmse(centres(T_cws), centres(poses_cw[:len(T_cws)])))
+
+
 def office_acceptance(out: dict, poses_cw: np.ndarray) -> dict:
     """The JAX office tests' numbers on a run: LOST frames and ATE over the
     tracked frames, whether the blackout ended LOST, and the relocalized
     pose's distance from the ground truth in the map's frame (camera 0's).
     """
-    from dr_slam_torch.io.metrics import ate_rmse
-
     n, st = OFFICE_FRAMES, out["state"]
-    ate = float(ate_rmse(centres(out["T_cw"][:n]), centres(poses_cw[:n])))
+    ate = trajectory_ate(out["T_cw"][:n], poses_cw)
     call = int(out["reloc_call"])
     err = float("inf")
     if call >= 0:
@@ -1542,3 +1555,46 @@ def fixture_evictions(data: dict, prefix: str, cfg, dev,
         got.append(np.nonzero(fields["kf_valid"]
                               & ~to_numpy(out.kf_valid))[0].tolist())
     return got, [[int(s)] for s in data[f"{prefix}slot"]], ms
+
+
+# --- bench_torch.py's legs --------------------------------------------------
+
+BENCH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "bench_runs.npz")
+
+
+def load_bench_fixture() -> dict:
+    """The JAX package's runs of bench.py's loops
+    (scripts/make_torch_bench_fixture.py)."""
+    return load_npz(BENCH_FIXTURE)
+
+
+# Frames of bench_runs.npz's runs (the corridor at 640x480) whose inlier
+# count the ORB pyramid's float32 rounding alone decides: near-tied
+# keypoints there flip when a level moves by 1e-5 grey levels, and the JAX
+# package's jitted pyramid lies up to 2.6e-3 from the port's, so on these
+# frames the port's inliers sit 3.4-5.2% from JAX's, in both legs. Given
+# JAX's pyramid the port holds there: from JAX's device-loop state before
+# frame 27 its records equal JAX's, and its `System` from an empty map
+# stays within TRACKER_COUNT_TOL on every frame
+# (tests/test_torch_bench.py's witnesses). These counts are held by those
+# witnesses, not by TRACKER_COUNT_TOL.
+BENCH_PYRAMID_FRAMES = (27, 30, 33)
+
+
+def bench_inliers_held(n: int, lag: int = 0) -> np.ndarray:
+    """(n,) bool: the records whose inlier count TRACKER_COUNT_TOL holds
+    against bench_runs.npz, all but those of BENCH_PYRAMID_FRAMES; record
+    i is frame i - lag's (1 for the `System` leg, whose deferred decision
+    returns the frame before's)."""
+    held = np.ones(n, bool)
+    held[[f + lag for f in BENCH_PYRAMID_FRAMES if f + lag < n]] = False
+    return held
+
+
+def bench_fixture_frames(data: dict, depth_factor: float) -> list:
+    """The bench fixture's frames (JAX's renders as uint8 gray and uint16
+    depth units) as `System.track_rgbd` takes them: float32 gray, float32
+    depth in metres."""
+    return [(g.astype(np.float32), d.astype(np.float32) / depth_factor)
+            for g, d in zip(data["frames_gray"], data["frames_depth"])]

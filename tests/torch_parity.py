@@ -262,6 +262,19 @@ def projected_tracked_pose():
         ts.pose_optimize = solve
 
 
+def jax_pyramid(img: torch.Tensor, n_levels: int = 8, scale: float = 1.2):
+    """The JAX package's jitted `build_pyramid` with the port's signature
+    (CPU tensors in and out): swapped for the port's
+    `dr_slam_torch.ops.image.build_pyramid`, the witness that a gap is the
+    pyramid's float32 rounding alone."""
+    import jax.numpy as jnp
+    from dr_slam_tpu.ops import image as jimage
+
+    levels = jimage.build_pyramid(jnp.asarray(img.numpy()),
+                                  n_levels=n_levels, scale=scale)
+    return tuple(torch.from_numpy(np.array(x)) for x in levels)
+
+
 def load_script(name: str):
     """scripts/<name>.py as a module."""
     import importlib.util
