@@ -3,13 +3,16 @@ bilinear resize, image pyramid, gradients, point sampling.
 
 Counterpart of the JAX package's `ops/image.py`. The resize reproduces
 `jax.image.resize(..., "bilinear")`, which widens its triangle filter by the
-scale factor on downscale (antialiasing); `F.interpolate` does not, so the
-per-axis weight matrices are built here the way
-`jax.image.scale_and_translate` builds them and applied as two matmuls."""
+scale factor on downscale (antialiasing); `F.interpolate` does not. The
+per-axis weight matrices are the ones XLA compiles
+`jax.image.scale_and_translate` into on the CPU, and each output sums its few
+non-zero terms in the order of XLA's CPU dots, so the pyramid is the JAX
+package's bit for bit, on the CPU and on the card."""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -31,8 +34,6 @@ def _const(key, device: torch.device) -> torch.Tensor:
     elif kind == "box":
         r = args[0]
         arr = np.full((2 * r + 1,), 1.0 / (2 * r + 1), np.float32)
-    elif kind == "resize":
-        arr = _resize_weights(*args)
     elif kind == "array":
         arr = np.asarray(args, np.float32)
     else:
@@ -65,37 +66,207 @@ def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     return sep_conv2d(img, k, k)
 
 
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add on numpy values: a * b + c rounded once
+    to float32 (`_fma32_t`)."""
+    def t(x, dtype):
+        return torch.from_numpy(np.asarray(x, dtype))
+
+    return _fma32_t(t(a, np.float64), t(b, np.float64),
+                    t(c, np.float32)).numpy()
+
+
 def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in, n_out) float32 weights of jax.image.scale_and_translate with
-    the triangle kernel, antialiased, translation 0 (float32 arithmetic in
-    the same order as jax/_src/image/scale.py:compute_weight_mat)."""
+    """(n_in, n_out) float32 weights of jax.image.resize(..., "bilinear")
+    along one axis, bit-equal to what XLA compiles
+    jax/_src/image/scale.py:compute_weight_mat into on an x86-64 CPU with
+    AVX-512 (every (n_in, n_out) of the 640x480 and 320x240 pyramids and
+    of YOLOX's 128, 256 and 640 inputs is checked in
+    tests/test_torch_resize.py).
+
+    The optimized HLO computes the matrix twice, in two loop fusions over
+    (n_in, n_out), n_out the inner loop:
+    - a `broadcast_maximum_fusion` whose output a reduce-window sums;
+    - a `select_select_fusion` that recomputes it, divides by that sum and
+      applies both `where`s.
+    Both run, per element: add(iota, 0.5) -> multiply(inv_scale) ->
+    add(-0.5) (the sample position); subtract(iota_in) -> abs ->
+    multiply(1 / kernel_scale) (the algebraic simplifier's rewrite of the
+    division) -> subtract from 1 -> maximum(0) (the triangle). LLVM then
+    rounds the two fusions differently column by column:
+    - in a vectorized loop body the sample position is one fused
+      multiply-add (`vfmsub213ps`) and the triangle two roundings;
+    - in the remainder, unrolled with constant trip count, LLVM folds the
+      sample position as two roundings and fuses the triangle
+      (`vfnmadd213ps`, 1 - |d| * recip).
+    The vector loop of the sum's fusion takes 32 columns an iteration (8
+    lanes, interleave 4), the select fusion's 8; its body covers the first
+    32 * (n_out // 32), resp. 8 * (n_out // 8) columns, unless that is 10
+    iterations or fewer, which LLVM unrolls whole: then every column is
+    remainder.
+
+    The sum: XLA's tree reduction rewriter splits the n_in reduction into a
+    reduce-window of 32 rows (padded by ((-n_in) % 32) // 2 rows at the
+    front) and a reduce of the window sums; each adds in order from 0.
+
+    inv_scale is float32(1 / (n_out / n_in)) (the scale is a Python float)
+    and the reciprocal float32(1) / inv_scale."""
     f32 = np.float32
-    scale = n_out / n_in
-    inv_scale = f32(1.0 / scale)
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = ((np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale
-                - f32(0.0) * inv_scale - f32(0.5)).astype(f32)
-    x = (np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None])
-         / kernel_scale).astype(f32)
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
-    total = np.sum(w, axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+    inv_scale = f32(1.0 / (n_out / n_in))
+    recip = f32(1.0) / max(inv_scale, f32(1.0))
+    centre = np.arange(n_out, dtype=f32) + f32(0.5)
+    rows = np.arange(n_in, dtype=f32)[:, None]
+
+    def fusion(body_end: int) -> tuple:
+        body = np.arange(n_out) < body_end
+        sample = np.where(body, _fma32(centre, inv_scale, f32(-0.5)),
+                          (centre * inv_scale).astype(f32) - f32(0.5))
+        d = np.abs(sample[None, :] - rows)
+        tri = np.where(body[None, :], f32(1.0) - d * recip,
+                       _fma32(-d, recip, f32(1.0)))
+        return sample, np.maximum(tri, f32(0.0))
+
+    def body_end(width: int) -> int:
+        return width * (n_out // width) if n_out // width > 10 else 0
+
+    _, w_sum = fusion(body_end(32))
+    pad_front = ((-n_in) % 32) // 2
+    total = np.zeros(n_out, f32)
+    for start in range(-pad_front, n_in, 32):
+        window = np.zeros(n_out, f32)
+        for k in range(max(start, 0), min(start + 32, n_in)):
+            window = window + w_sum[k]
+        total = total + window
+    sample, w = fusion(body_end(8))
+    w = np.where(np.abs(total) > f32(1000.0 * float(np.finfo(f32).eps)),
                  w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    inside = (sample >= f32(-0.5)) & (sample <= f32(n_in - 0.5))
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+def _contraction(n_in: int, n_out: int, lhs: bool) -> tuple:
+    """The summation order XLA's CPU dot gives each output of a resize
+    stage: (lanes, block starts). `lhs`: the weights are the dot's
+    transposed left operand (the row stage, `dot(w, x)` contracting dim 0
+    of both); else its right operand (the column stage, `dot(t, w)`).
+
+    Each block of the contraction dimension is summed on its own and the
+    block sums added in order. Inside a block, term k goes to lane
+    (k - block start) % lanes; each lane is a chain of fused multiply-adds
+    in k order from 0; the lanes are added pairwise, neighbours first.
+    - Row stage (Eigen's contraction on two or more threads): one lane;
+      blocks of ceil(n_in / ceil(n_in / 320)) rounded up to 8 once n_in >
+      320. Not reproduced: for outputs under about 25,000 pixels Eigen's
+      cost model may shard the contraction into blocks of 96 (the 240x320
+      8-level pyramid's level 4 then differs by an ulp in places).
+    - Column stage (YNNPACK's fp32 dot; checked for more than 48 output
+      rows): the kernel is the widest of 64 columns x 1 lane, 32 x 2 and
+      16 x 4 that pads n_out least; blocks of 512 x lanes."""
+    if lhs:
+        if n_in <= 320:
+            return 1, (0,)
+        nblocks = -(-n_in // 320)
+        kc = -(-(-(-n_in // nblocks)) // 8) * 8
+        return 1, tuple(range(0, n_in, kc))
+    lanes = min(((64, 1), (32, 2), (16, 4)),
+                key=lambda t: (-(-n_out // t[0]) * t[0], -t[0]))[1]
+    return lanes, tuple(range(0, n_in, 512 * lanes))
+
+
+def _tap_plan(n_in: int, n_out: int, lhs: bool) -> list:
+    """The non-zero weights of `_resize_weights(n_in, n_out)` scheduled in
+    `_contraction`'s order: blocks, each a list of lanes, each a list of
+    steps (index (n_out,) int64, weight (n_out,) float32); a step pads the
+    outputs with fewer terms with index 0, weight 0."""
+    w = _resize_weights(n_in, n_out)
+    lanes, starts = _contraction(n_in, n_out, lhs)
+    ends = starts[1:] + (n_in,)
+    plan = []
+    for b0, b1 in zip(starts, ends):
+        block = []
+        for lane in range(lanes):
+            ks = np.arange(b0 + lane, b1, lanes)
+            nz = w[ks] != 0                                     # (len, n_out)
+            steps = int(nz.sum(0).max()) if len(ks) else 0
+            order = np.argsort(~nz, axis=0, kind="stable")[:steps]
+            idx = np.where(np.take_along_axis(nz, order, 0), ks[order], 0)
+            wt = np.take_along_axis(w[ks], order, 0)
+            block.append([(idx[s], wt[s]) for s in range(steps)])
+        plan.append(block)
+    return plan
+
+
+@functools.lru_cache(maxsize=128)
+def _taps(n_in: int, n_out: int, lhs: bool, device: torch.device) -> tuple:
+    """`_tap_plan` on the device, made once per device: the steps as
+    (index, float32 weight, float64 weight)."""
+    return tuple(tuple(tuple(
+        (torch.from_numpy(i).to(device), torch.from_numpy(w).to(device),
+         torch.from_numpy(w.astype(np.float64)).to(device))
+        for i, w in lane) for lane in block)
+        for block in _tap_plan(n_in, n_out, lhs))
+
+
+def _fma32_t(a64: torch.Tensor, w64: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add: a64 * w64 + c rounded once to float32
+    (a64, w64 float64 holding float32 values, c float32).
+
+    The float32 product is exact in float64; the float64 sum s has an exact
+    error e (TwoSum). Rounding s to float32 rounds a * w + c unless s is a
+    float32 tie and e != 0; no odd float64 is a float32 tie, so an even s
+    steps one float64 ulp toward a * w + c first."""
+    p = a64 * w64
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((e != 0) & even, torch.nextafter(s, e * math.inf), s)
+    return s.float()
+
+
+def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
+    """One stage of the resize: x's `dim` (0: rows, the JAX dot's transposed
+    left operand; 1: columns, its right operand) resized to n_out, every
+    output summed from its non-zero terms in XLA's order (`_contraction`).
+    Elementwise float32 and float64 arithmetic only, so the CPU and the card
+    give the same bits."""
+    plan = _taps(x.shape[dim], n_out, dim == 0, x.device)
+    shape = (-1, 1) if dim == 0 else (1, -1)
+    x64 = x.double()
+    out = None
+    for block in plan:
+        sums = []
+        for lane in block:
+            acc = torch.zeros((), dtype=x.dtype, device=x.device)
+            for s, (idx, w32, w64) in enumerate(lane):
+                if s == 0:
+                    acc = x.index_select(dim, idx) * w32.view(shape)
+                else:
+                    acc = _fma32_t(x64.index_select(dim, idx),
+                                   w64.view(shape), acc)
+            sums.append(acc)
+        while len(sums) > 1:
+            sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+        out = sums[0] if out is None else out + sums[0]
+    return out
+
+
 def bilinear_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Antialiased bilinear resize of a (H, W) image, matching
-    jax.image.resize(img, (out_h, out_w), "bilinear")."""
+    """Antialiased bilinear resize of a (H, W) float32 image, bit-equal to
+    the JAX package's jitted jax.image.resize(img, (out_h, out_w),
+    "bilinear") on the CPU: XLA's weights (`_resize_weights`), rows first,
+    then columns, each output summed in XLA's order (`_resize_axis`). Where
+    opt_einsum finds the columns first cheaper (YOLOX's square 128 and 256
+    inputs from 640x480; never a pyramid level of a landscape image), XLA
+    runs other dots and the port lies an ulp or two off."""
     h, w = img.shape
     x = img
     if out_h != h:
-        wy = _const(("resize", (h, out_h)), img.device)      # (h, out_h)
-        x = wy.T @ x
+        x = _resize_axis(x, out_h, 0)
     if out_w != w:
-        wx = _const(("resize", (w, out_w)), img.device)      # (w, out_w)
-        x = x @ wx
+        x = _resize_axis(x, out_w, 1)
     return x
 
 

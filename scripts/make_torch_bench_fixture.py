@@ -8,9 +8,9 @@ lags by exactly one frame, as the port's does when each frame's upload
 waits for the stream; and each tracked rotation is projected onto SO(3)
 after the second pose solve (`projected_tracked_pose`), as the port's
 `slam/track_step.py` does. Everything else is the JAX package's own, its
-jitted ORB pyramid included: where that pyramid's float32 rounding alone
-moves the device loop's inlier count (frames 27, 30 and 33), the port is
-held by a witness instead (`dr_slam_torch._smoke.BENCH_PYRAMID_FRAMES`).
+jitted ORB pyramid included (the port's is the same bits). The inlier
+counts of frames 27, 30 and 33 are held by a witness
+(`dr_slam_torch._smoke.BENCH_PYRAMID_FRAMES`).
 
 - "odo_": `bench_odometry`'s map, `System(tum_freiburg3(),
   enable_loop_closing=False)` over frames 0-11 of the mapping fixture

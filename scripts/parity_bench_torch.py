@@ -25,11 +25,11 @@ scripts/make_torch_bench_fixture.py), at full width (`tum_freiburg3()`,
    witness). For each: the frames whose inliers differ from JAX's and the
    largest T_cw gap.
 3. The pyramid's rounding, on frames BENCH_PYRAMID_FRAMES of JAX's
-   quantised renders: the largest gap of the JAX package's jitted pyramid
-   (over its 8 levels and at level 1) from the port's, and from JAX's
-   resize weights evaluated as XLA compiles them for the CPU (its HLO
-   computes the sample position `(i + 0.5) * inv_scale - 0.5` as one fused
-   multiply-add) with float32 contractions; and the port's gap from that.
+   quantised renders: per level, the largest gap of the port's pyramid from the JAX
+   package's jitted one and the count of differing pixels; and per
+   (n_in, n_out) of the 640x480 pyramid, the entries where the port's
+   resize weights differ from XLA's (read out by resizing an identity
+   matrix).
 
     JAX_PLATFORMS=cpu python scripts/parity_bench_torch.py [--threads 4] \
         [--part all|renders|witness|rounding]
@@ -51,9 +51,10 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import numpy as np  # noqa: E402
 
-from dr_slam_torch._smoke import (DEVICE_LOOP_EXACT,  # noqa: E402
-                                  TRACKER_COUNT_TOL, TRACKER_T_TOL,
-                                  bench_inliers_held, count_gaps)
+from dr_slam_torch._smoke import (BENCH_PYRAMID_FRAMES,  # noqa: E402
+                                  DEVICE_LOOP_EXACT, TRACKER_COUNT_TOL,
+                                  TRACKER_T_TOL, bench_inliers_held,
+                                  count_gaps)
 
 DEVICE_FRAMES, DEVICE_WARM = 120, 25
 CARRY, LAST = 27, 34      # the witness: JAX's carry before step 27
@@ -197,57 +198,54 @@ def pyramid_witness(cfg, tcfg) -> dict:
     return out
 
 
-def fma_resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """jax.image.resize's bilinear weights along one axis with the sample
-    position one fused multiply-add (the float32 product is exact in
-    float64, so the float64 sum rounds once), as XLA compiles them for the
-    CPU; float32 otherwise."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (n_out / n_in))
-    recip = f32(1.0) / max(inv_scale, f32(1.0))
-    centre = np.arange(n_out, dtype=f32) + f32(0.5)
-    sample = (centre.astype(np.float64) * np.float64(inv_scale)
-              - 0.5).astype(f32)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) * recip
-    w = np.maximum(f32(1.0) - x, f32(0.0))
-    total = w.sum(axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+def xla_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """jax.image.resize's bilinear weights along one axis as XLA compiles
+    them on this CPU, read out by resizing an identity matrix (every
+    product is by 0 or 1, so nothing rounds)."""
+    import jax
+    import jax.numpy as jnp
+
+    eye = jnp.eye(n_in, dtype=jnp.float32)
+    out = jax.jit(lambda x: jax.image.resize(x, (n_out, n_in), "bilinear"))(
+        eye)
+    return np.asarray(out).T
 
 
 def pyramid_rounding(cfg) -> dict:
+    """The port's resize against XLA's on frames BENCH_PYRAMID_FRAMES of
+    JAX's quantised renders: per level of the 8-level pyramid, the largest gap
+    of the port's levels from the JAX package's jitted ones and the count
+    of differing pixels; and per (n_in, n_out) of that pyramid, the entries
+    where the port's weights (`_resize_weights`) differ from XLA's."""
     import jax.numpy as jnp
     import torch
 
-    from dr_slam_torch._smoke import BENCH_PYRAMID_FRAMES
     from dr_slam_torch.ops import image as timage
     from dr_slam_tpu.ops import image as jimage
 
     import bench_torch
-
-    def gap(a, b):
-        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
 
     frames = jax_renders(cfg, max(BENCH_PYRAMID_FRAMES) + 1)
     out = {}
     for f in BENCH_PYRAMID_FRAMES:
         g = bench_torch._quantize(*frames[f], cfg.camera.depth_factor)[0]
         g = g.astype(np.float32)
-        jax_levels = jimage.build_pyramid(jnp.asarray(g))
-        port = timage.build_pyramid(torch.from_numpy(g))
-        x, fma = g, [g]
-        for oh, ow in jimage.pyramid_shapes(*g.shape, 8, 1.2)[1:]:
-            x = (fma_resize_weights(x.shape[0], oh).T @ x
-                 @ fma_resize_weights(x.shape[1], ow)).astype(np.float32)
-            fma.append(x)
+        jax_levels = [np.asarray(x) for x in jimage.build_pyramid(
+            jnp.asarray(g))]
+        port = [x.numpy() for x in timage.build_pyramid(torch.from_numpy(g))]
         out[int(f)] = {
-            "jax_port": max(gap(a, b) for a, b in zip(jax_levels, port)),
-            "jax_port_level1": gap(jax_levels[1], port[1]),
-            "jax_fma": max(gap(a, b) for a, b in zip(jax_levels, fma)),
-            "jax_fma_level1": gap(jax_levels[1], fma[1]),
-            "port_fma": max(gap(a, b) for a, b in zip(port, fma))}
+            "max_gap": [float(np.abs(a - b).max())
+                        for a, b in zip(jax_levels, port)],
+            "differing_px": [int((a != b).sum())
+                             for a, b in zip(jax_levels, port)]}
+    shapes = timage.pyramid_shapes(cfg.camera.height, cfg.camera.width,
+                                   cfg.orb.n_levels, cfg.orb.scale_factor)
+    pairs = sorted({p for a, b in zip(shapes[:-1], shapes[1:])
+                    for p in ((a[0], b[0]), (a[1], b[1]))})
+    out["weights_differing"] = {
+        f"{a}->{b}": int((timage._resize_weights(a, b)
+                          != xla_resize_weights(a, b)).sum())
+        for a, b in pairs}
     print(f"rounding: {json.dumps(out)}", flush=True)
     return out
 

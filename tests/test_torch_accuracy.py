@@ -22,7 +22,7 @@ bound (gray within 0.5 level on 99.9% of the pixels, depth within 1e-6 m).
 Held over every frame of the run: states, keyframe flags, reference
 keyframes, keyframes' frames and LOST frames (none) exact; T_cw within
 3e-3 per entry and the inlier counts within 2% (phases 4-5's bounds: the
-port's pyramid and float32 solves sum in another order than XLA's);
+port's float32 solves sum in another order than XLA's);
 rotations within 1e-5 of SO(3); no loop closed yet. The poses, the
 trained codebook and the codebook in effect (the shipped vocab512.npz,
 which `System.__init__` registers over the trained one in both packages)

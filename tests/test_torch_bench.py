@@ -20,7 +20,7 @@ package's renders of the corridor.
 - `main`: its line has bench.py's keys but `mfu_estimate`'s, plus the
   device loop's readbacks per frame; a leg that raises ends it with no
   line; without a card it raises; the script imports nothing of JAX.
-- At 640x480, the witness for the device loop's inliers on
+- At 640x480, the witnesses for the inliers of both legs on
   `_smoke.BENCH_PYRAMID_FRAMES` in dr_slam_torch/data/bench_runs.npz."""
 
 import json
@@ -249,13 +249,14 @@ def test_imports_nothing_of_jax():
 def test_device_loop_pyramid_witness():
     """The witness that holds the device loop's inliers on
     `_smoke.BENCH_PYRAMID_FRAMES` (frames 27, 30, 33 of bench_runs.npz's
-    run at 640x480, where the port's own run sits 3.4-5.2% from JAX's): the
-    JAX `DeviceLoopTracker` over the fixture's frames 0-33 gives the
-    fixture's records; its carry before frame 27 goes into the port, which
-    with the JAX package's jitted pyramid in place of its own gives JAX's
-    records on frames 27-33, every integer and count equal and T_cw within
-    1e-5 (observed 6.6e-7). So those gaps are the pyramid's float32
-    rounding, and nothing after it."""
+    run at 640x480; on the card's renders the port's own run sits 5.0% from
+    JAX's at frame 27): the JAX `DeviceLoopTracker` over the fixture's
+    frames 0-33 gives the fixture's records; its carry before frame 27 goes
+    into the port, which with the JAX package's jitted pyramid in place of
+    its own (the same bits since the port computes XLA's resize) gives
+    JAX's records on frames 27-33, every integer and count equal and T_cw
+    within 1e-5 (observed 6.6e-7, and so with the port's own pyramid,
+    scripts/parity_bench_torch.py)."""
     from dr_slam_tpu.config import tum_freiburg3
     from dr_slam_tpu.slam.device_loop import DeviceLoopTracker as JTracker
     from dr_slam_torch.ops import image as timage
@@ -303,8 +304,10 @@ def test_device_loop_pyramid_witness():
 def test_tracking_leg_pyramid_witness():
     """The witness for the `System` leg's inliers on
     `_smoke.BENCH_PYRAMID_FRAMES` (its records 28, 31, 34: each call
-    returns the frame before's, and there the port's own run sits 3.4-4.8%
-    from JAX's): with the JAX package's jitted pyramid in place of its own,
+    returns the frame before's; the port's own run, whose pyramid is now
+    JAX's bit for bit, holds them within 0.3% on the CPU, exactly on the
+    card): with
+    the JAX package's jitted pyramid in place of its own,
     the port's leg over the fixture's first 35 frames holds against the
     fixture's run on every record, those included: states, keyframe flags
     and reference keyframes exact, T_cw within 3e-3, inliers and matches

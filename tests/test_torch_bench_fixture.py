@@ -14,9 +14,9 @@ JAX's renders, the port's two rules on the JAX side). No JAX runs here.
   warm, 9 through its staged copies): states, keyframe flags, reference keyframes
   and their sequences exact, T_cw within 3e-3, matches within 2%, and
   inliers within 2% on every frame but frames 27, 30 and 33
-  (`_smoke.BENCH_PYRAMID_FRAMES`), where the JAX package's jitted pyramid
-  alone moves them 3.4-5.2% and a witness holds them
-  (tests/test_torch_bench.py), one readback per step."""
+  (`_smoke.BENCH_PYRAMID_FRAMES`, within 0.5% here, 5.0% at frame 27 on
+  the card's renders), which a witness holds (tests/test_torch_bench.py),
+  one readback per step."""
 
 import os
 import sys

@@ -4,15 +4,16 @@ four frames of the smoke fixture (dr_slam_torch/data/smoke_corridor.npz),
 chained as chip_smoke.py chains them, on the CPU, against the JAX outputs
 stored in the fixture.
 
-The one source of difference is the image pyramid. The JAX package's
-`build_pyramid` is jitted, and inside that jit XLA computes the antialiased
-resize weights with its own float32 rounding: its level 1 lies up to 2.5e-3
-grey levels from a float64 evaluation of the same weights, where the port's
-lies within 3e-5. No float32 ordering of the weight arithmetic reproduces
-XLA's weights, so the port keeps its own (the more accurate ones), and these
-tests pin the gap three ways: the port as it is stays within stated bounds;
-with the JAX package's pyramid swapped in, the port matches exactly; and the
-port's pyramid is within 1e-4 of float64."""
+The image pyramid was the one source of difference. The JAX package's
+`build_pyramid` is jitted, and XLA compiles jax.image.resize's weights with
+its own float32 rounding (division by the kernel scale rewritten as a
+multiplication by its reciprocal, fused multiply-adds where LLVM vectorizes,
+the column sums in 32-row windows) and sums each output of its two dots in
+its own order. The port's resize now does the same (ops/image.py,
+tests/test_torch_resize.py), so its levels are JAX's, bit for bit. These
+tests pin that three ways: the port as it is matches the JAX outputs in every
+slot; with the JAX package's pyramid swapped in, it still does; and both
+pyramids lie within 1e-4 of a float64 evaluation of the same weights."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,22 +50,18 @@ def _gaps(out, data, i):
 
 
 def test_port_gap_to_jax_outputs_is_bounded():
-    """The port as it is. Tolerances, all from the reference's jitted
-    pyramid weights (see the module docstring): pyramid levels differ in
-    the last bits, which reorders keypoints whose FAST responses are
-    near-tied, so a few match slots change (observed 28/0/0/42 of 1024,
-    bound 64) and the counts move by one (bound 2%); the pose, solved from
-    nearly the same matches, moves by float rounding carried through four
-    chained frames (observed 1.5e-4, bound 1e-3)."""
+    """The port as it is: every fixture frame matches the JAX outputs
+    exactly in mp_idx, n_matches and n_inliers (before the port computed
+    XLA's resize, 28/0/0/42 of 1024 slots differed and frame 0 was one
+    match and one inlier off), and the pose within 1e-5 (observed 3.1e-7:
+    float32 sums in another order in the pose solve)."""
     outs, data = _track_fixture()
     for i, out in enumerate(outs):
         dT, mp_mism = _gaps(out, data, i)
-        nm, ni = int(out.n_matches), int(out.n_inliers)
-        jm, ji = int(data["n_matches"][i]), int(data["n_inliers"][i])
-        assert dT <= 1e-3, (i, dT)
-        assert abs(nm - jm) <= 0.02 * jm, (i, nm, jm)
-        assert abs(ni - ji) <= 0.02 * ji, (i, ni, ji)
-        assert mp_mism <= 64, (i, mp_mism)
+        assert mp_mism == 0, (i, mp_mism)
+        assert int(out.n_matches) == int(data["n_matches"][i]), i
+        assert int(out.n_inliers) == int(data["n_inliers"][i]), i
+        assert dT <= 1e-5, (i, dT)
 
 
 def test_gap_is_the_pyramid_alone(monkeypatch):
@@ -92,9 +89,11 @@ def test_port_pyramid_matches_float64():
     """Each level of the port's pyramid on fixture frame 12 (640x480) is
     within 1e-4 grey levels of one resize step evaluated in float64 from
     the port's previous level with the same weight matrices (observed
-    2.6e-5 at level 1: float32 rounding of the two matmuls). The JAX
-    package's jitted pyramid lies further from float64 at level 1 (observed
-    2.5e-3): the port's is the more accurate of the two."""
+    2.7e-5 at level 1, 3.0e-5 at most: float32 rounding of the two dots),
+    and so is each
+    level of the JAX package's jitted pyramid (before the port computed
+    XLA's weights, JAX's level 1 lay 2.5e-3 from the float64 evaluation
+    with the port's weights)."""
     with np.load(FIXTURE) as fx:
         gray = fx["gray"][0].astype(np.float32)
 
@@ -108,8 +107,8 @@ def test_port_pyramid_matches_float64():
     port = [x.numpy() for x in timage.build_pyramid(torch.from_numpy(gray),
                                                     8, 1.2)]
     assert port[0].shape == (480, 640)
-    for l in range(1, len(port)):
-        assert f64_gap(port, l) <= 1e-4, (l, f64_gap(port, l))
     ref = [np.array(x) for x in jimage.build_pyramid(jnp.asarray(gray),
                                                      n_levels=8, scale=1.2)]
-    assert f64_gap(ref, 1) > 10 * f64_gap(port, 1)
+    for l in range(1, len(port)):
+        assert f64_gap(port, l) <= 1e-4, (l, f64_gap(port, l))
+        assert f64_gap(ref, l) <= 1e-4, (l, f64_gap(ref, l))

@@ -6,9 +6,9 @@ The whole front-end runs on rendered corridor frames at the small
 configuration of tests/test_tracking_e2e.py (320x240, 512 keypoints), in
 float32 as the JAX `System` is fed in its tests. (On uint8 images the FAST
 responses of level 0 are integers and those of coarser levels land within
-1e-5 of integers, and the pyramid's last-bit differences then reorder a few
-near-tied keypoints; the ingestion of uint8 / uint16 frames is compared on
-its own.) Integer outputs
+1e-5 of integers, where any last-bit difference reorders near-tied
+keypoints; the ingestion of uint8 / uint16 frames is compared on its
+own.) Integer outputs
 (keypoint validity, octaves, descriptors, plane labels and validity, line
 validity and descriptors, solver inlier masks and counts, Manhattan success
 and cone memberships) must match exactly. Float tolerances, with their

@@ -265,8 +265,9 @@ def projected_tracked_pose():
 def jax_pyramid(img: torch.Tensor, n_levels: int = 8, scale: float = 1.2):
     """The JAX package's jitted `build_pyramid` with the port's signature
     (CPU tensors in and out): swapped for the port's
-    `dr_slam_torch.ops.image.build_pyramid`, the witness that a gap is the
-    pyramid's float32 rounding alone."""
+    `dr_slam_torch.ops.image.build_pyramid`, the witness that a gap is not
+    the pyramid's (the port's pyramid is JAX's bit for bit on the CPU,
+    tests/test_torch_resize.py)."""
     import jax.numpy as jnp
     from dr_slam_tpu.ops import image as jimage
 
