@@ -130,13 +130,14 @@ Phases (any failure exits non-zero, and the result line is not printed):
    mapping_corridor.npz and the two scenes of
    dr_slam_torch/data/synthetic_fixture.npz (made by
    scripts/make_torch_synthetic_fixture.py; office clutter and the small
-   room, quadratic depth noise from PRNGKey(7)), quantised as the fixtures
-   are: hit masks exact, depth within one uint16 step, the share of gray
-   pixels off by more than one level under GRAY_OFF_SHARE; ms per rendered
-   frame. (b) scripts/run_synthetic_torch.py's `main` with --frames 24:
-   no frame LOST, ATE under 0.05 m and within 2x + 5 mm of the JAX run's,
-   2 matcher launches per tracked frame, the kernel against its plain
-   version on both of frame 11's launches; frames/s. (c)
+   room, quadratic depth noise from PRNGKey(7)): the float gray and depth
+   bit-equal to the port's renders of the same poses on the host's CPU,
+   and, quantised as the fixtures are, equal to the fixtures' JAX renders;
+   ms per rendered frame. (b) scripts/run_synthetic_torch.py's `main`
+   with --frames 24: no frame LOST, ATE under 0.05 m and within 2x + 5 mm
+   of the JAX run's, 2 matcher launches per tracked frame, the kernel
+   against its plain version on both of frame 11's launches; frames/s.
+   (c)
    `synthetic_map_state` at tests/test_backend.py's realistic capacity
    (240 keyframes x 512 slots) against the JAX state's checksums, then
    `bundle_adjust` and `sharded_bundle_adjust` on meshes of 1 and 4
@@ -181,17 +182,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
    JAX run: states, keyframes per call, reference keyframes and every
    slot's insertion sequence exact, T_cw within TRACKER_T_TOL and the
    counts within 2% (`_smoke.behaviour_gaps`; the card renders the frames
-   itself, which moves the gray's last bits only). The five forced
-   evictions are timed. 13b: tests/test_transfer_validation.py's office
-   world at its own 320x240 (fx 262): 40 frames, three black frames, frame
-   20 again until it relocalizes, fed the fixture's frames (JAX's renders
-   rounded as a TUM camera gives them, gray uint8 and depth uint16: the
-   port's own renders of this world move T_cw 5.9e-3 from JAX's on the
-   CPU) and held by the same rule against the JAX run on them (but for
-   frame 1's inliers, read back at call 2: the first tracked frame's pose
-   is weakly held, and the port's own float order moves that count by
-   more than 2% between the card and the CPU, so it is held from the port
-   on the host's CPU), the
+   itself, JAX's bit for bit). The five forced evictions are timed. 13b:
+   tests/test_transfer_validation.py's office world at its own 320x240
+   (fx 262): 40 frames, three black frames, frame 20 again until it
+   relocalizes, fed the fixture's frames (JAX's renders
+   rounded as a TUM camera gives them, gray uint8 and depth uint16; the
+   port's own renders of this world are the same bits) and held by the
+   same rule against the JAX run on them (but for frame 1's inliers, read
+   back at call 2: the first tracked frame's pose is weakly held, and the
+   port's own float order moves that count by more than 2% between the
+   card and the CPU, so it is held from the port on the host's CPU), the
    relocalization at JAX's call and the JAX tests' acceptance (no frame
    LOST, ATE under 0.08 m, LOST after the blackout, OK on the first or
    second try within 0.10 m). 13c: the
@@ -214,21 +214,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
    PIPELINE_FRAMES frames (the pipelined frames/s of this script) at
    exactly 2 launches per frame, and the synchronising calls of one more
    pipelined frame counted under `torch.cuda.set_sync_debug_mode` (printed
-   only; its 2 launches counted). 14b: `bench_tracking` over its 60
-   frames, fed the fixture's (JAX's renders as uint8 gray and uint16
-   depth: on the port's own float renders T_cw moves 4.3e-3 from JAX's on
-   JAX's, and four frames' inliers 2-4.5%, scripts/parity_bench_torch.py);
-   14c: `bench_interactive_device` over BENCH_DEVICE_FRAMES frames after
-   BENCH_DEVICE_WARM warm-up frames of the port's renders, through its
-   pinned, double-buffered copies. Both held as phases 4 and 7: states,
-   keyframes and reference keyframes exact, T_cw within TRACKER_T_TOL,
-   counts within 2% (the inliers of `_smoke.BENCH_PYRAMID_FRAMES`, where
-   the device loop over the card's renders sits 5% from JAX's at frame 27,
-   whose render on the card differs from the CPU's, are printed and held
-   by their witnesses on the CPU, tests/test_torch_bench.py), ATE under
-   BENCH_ATE_MAX and within 2x + 5 mm of JAX's, 2 launches per tracked
-   frame. 14d: `bench_frontend` over 30 frames, valid keypoints within 2%
-   of JAX's. The kernel is held against its plain version on 14b's call
+   only; its 2 launches counted). 14b: `bench_tracking`'s 60 frames
+   rendered on the card as the leg renders them and quantised as bench.py
+   quantises them (uint8 gray, uint16 depth), equal byte for byte to the
+   fixture's frames (JAX's renders), then the leg over them; 14c:
+   `bench_interactive_device` over BENCH_DEVICE_FRAMES frames after
+   BENCH_DEVICE_WARM warm-up frames of the port's renders on the card,
+   through its pinned, double-buffered copies. Both held as phases 4 and
+   7 on every frame: states, keyframes and reference keyframes exact,
+   T_cw within TRACKER_T_TOL, counts within 2%, ATE under BENCH_ATE_MAX
+   and within 2x + 5 mm of JAX's, 2 launches per tracked frame. 14d:
+   `bench_frontend` over 30 frames, valid keypoints within 2% of JAX's.
+   The kernel is held against its plain version on 14b's call
    BENCH_KEPT_CALL. Prints each leg's frames/s and the device loop's
    readbacks per step.
 
@@ -1316,12 +1313,8 @@ def detect_phase(dev, cfg, card: str, runner_ms=None) -> tuple[int, dict]:
     return launches, numbers
 
 
-# Phase 11 bounds, written before the first run on the card. Gray: the
-# renderer fuses the texture hash's first product as XLA does and rounds
-# sin from float64, so a quantised pixel should differ from the JAX
-# render's by more than one grey level only where the card's float32
-# sin/cos or a cell edge rounds the other way.
-GRAY_OFF_SHARE = 0.005    # share of pixels with |gray8 - jax| > 1
+# Phase 11 bounds, written before the first run on the card (the renders
+# are held exactly)
 SYNTH_ATE_MAX = 0.05      # run_synthetic's own sanity bound (m)
 SHARD_TOL = 2e-3          # 4 shards against 1 (tests/test_backend.py)
 LOSS_TOL0 = 1e-5          # first-batch loss, relative
@@ -1396,37 +1389,43 @@ def synthetic_phase(dev, cfg, card: str) -> tuple[int, dict]:
                         torch.from_numpy(boxes).to(dev),
                         PRNGKey(_smoke.SYNTH_FRAME), fx[f"{name}__gray"],
                         fx[f"{name}__depth"]))
-    render_ms, off, hit_bad, depth_worst, corridor = [], {}, [], 0, []
+    render_ms, corridor, float_bad, quant_bad = [], [], {}, {}
+    cpu = torch.device("cpu")
     for name, T, pl, boxes, key, want_g, want_d in renders:
-        T = torch.from_numpy(T).to(dev)
+        T = torch.from_numpy(T)
+        kw = dict(depth_noise_key=key, quadratic_noise=key is not None)
         _sync(torch, dev)
         t0 = time.perf_counter()
-        g, d = synthetic.render_frame(T, pl, K4, 480, 640,
-                                      depth_noise_key=key, boxes=boxes,
-                                      quadratic_noise=key is not None)
+        g, d = synthetic.render_frame(T.to(dev), pl, K4, 480, 640,
+                                      boxes=boxes, **kw)
         _sync(torch, dev)
         render_ms.append((time.perf_counter() - t0) * 1e3)
         if name == "corridor":
             corridor.append(g)
+        # the port's render of the same pose on the host's CPU
+        hg, hd = synthetic.render_frame(
+            T, pl.to(cpu), K4, 480, 640,
+            boxes=None if boxes is None else boxes.to(cpu), **kw)
+        n_float = sum(int((a.cpu().view(torch.int32)
+                           != b.view(torch.int32)).sum())
+                      for a, b in ((g, hg), (d, hd)))
         g8, d16 = _smoke.quantize(g, d, factor)
-        if not np.array_equal(d16 > 0, want_d > 0):
-            hit_bad.append(name)
-        depth_worst = max(depth_worst, int(np.abs(
-            d16.astype(np.int64) - want_d).max()))
-        share = float((np.abs(g8.astype(np.int64) - want_g) > 1).mean())
-        off[name] = max(off.get(name, 0.0), share)
+        n_quant = int((g8 != want_g).sum()) + int((d16 != want_d).sum())
+        float_bad[name] = float_bad.get(name, 0) + n_float
+        quant_bad[name] = quant_bad.get(name, 0) + n_quant
     numbers["render_ms"] = float(np.median(render_ms[1:]))
     print(f"[synthetic] renderer: {len(renders)} frames at 640x480 (the 24 "
           f"corridor frames of mapping_corridor.npz, the clutter and "
           f"small-room frames of synthetic_fixture.npz with quadratic depth "
-          f"noise): hit masks differing {hit_bad}, depth within "
-          f"{depth_worst} uint16 steps, share of gray pixels off by more "
-          f"than one level (worst frame) {json.dumps(off)} (bound "
-          f"{GRAY_OFF_SHARE}); {numbers['render_ms']:.3f} ms per frame "
-          f"(median, synchronised; first {render_ms[0]:.1f} ms) on {card}",
-          flush=True)
-    if hit_bad or depth_worst > 1 or max(off.values()) > GRAY_OFF_SHARE:
-        fails.append("renderer: hit masks, depth or gray off the JAX renders")
+          f"noise): float gray and depth pixels whose bits differ from the "
+          f"port's render on the host's CPU {json.dumps(float_bad)}, "
+          f"quantised pixels differing from the fixtures' JAX renders "
+          f"{json.dumps(quant_bad)} (both must be 0); "
+          f"{numbers['render_ms']:.3f} ms per frame (median, synchronised; "
+          f"first {render_ms[0]:.1f} ms) on {card}", flush=True)
+    if any(float_bad.values()) or any(quant_bad.values()):
+        fails.append("renderer: the card's renders differ from the host "
+                     "CPU's or, quantised, from the JAX renders")
 
     # --- (b) the run script --------------------------------------------------
     run = script("run_synthetic_torch")
@@ -2129,8 +2128,31 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
           f"{rec['launches']}; {syncs} synchronising calls in one pipelined "
           f"frame (torch.cuda.set_sync_debug_mode) on {card}", flush=True)
 
-    # 14b: the tracking leg over the fixture's frames, JAX's renders: on the
-    # port's own the pose moves 4.3e-3 (scripts/parity_bench_torch.py)
+    # 14b: the tracking leg's 60 frames rendered on the card, as the leg
+    # renders them, quantised as bench.py quantises them: JAX's renders in
+    # the fixture, byte for byte; the leg then runs on them
+    n = BENCH_TRACKING_FRAMES
+    seq = bench_torch._sequence(cfg, n, dev)
+    staged, render_ms = [], []
+    for i in range(n):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        g, d = seq.render(i)
+        _sync(torch, dev)
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        staged.append(bench_torch._quantize(g, d, df))
+    quantised = {"frames_gray": np.stack([g for g, _ in staged]),
+                 "frames_depth": np.stack([d for _, d in staged])}
+    render_bad = {k: int((quantised[k] != data[k][:n]).sum())
+                  for k in quantised}
+    if any(render_bad.values()):
+        fails.append(f"14b: the card's renders, quantised, differ from JAX's "
+                     f"in {render_bad} pixels")
+    print(f"[bench] 14b renders: {n} frames at 640x480 on the card, "
+          f"quantised pixels differing from bench_runs.npz's frames_ (JAX's "
+          f"renders) {render_bad}; {np.median(render_ms[1:]):.3f} ms per "
+          f"frame (median, synchronised; first {render_ms[0]:.1f} ms) on "
+          f"{card}", flush=True)
     kernel, kept, calls = map_ops.gated_top2_hamming, [], [0]
 
     def keep(*a):
@@ -2143,12 +2165,11 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
     counter.launches = 0
     try:
         trk = bench_torch.bench_tracking(
-            BENCH_TRACKING_FRAMES, cfg, dev,
-            _smoke.bench_fixture_frames(data, df))
+            n, cfg, dev, _smoke.bench_fixture_frames(quantised, df))
     finally:
         map_ops.gated_top2_hamming = kernel
     launches["tracking"] = counter.launches
-    got, n = trk.record, BENCH_TRACKING_FRAMES
+    got = trk.record
     want = {k: data[f"trk_{k}"][:n] for k in
             ("state", "is_keyframe", "ref_kf", "T_cw", "n_inliers",
              "n_matches")}
@@ -2160,13 +2181,13 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
     dT = float(np.abs(got["T_cw"] - want["T_cw"]).max())
     if dT > _smoke.TRACKER_T_TOL:
         fails.append(f"14b: |dT_cw| {dT:.2e} > {_smoke.TRACKER_T_TOL}")
-    held = _smoke.bench_inliers_held(n, lag=1)
-    rel = max(_hold_counts(got["n_inliers"][held], want["n_inliers"][held],
+    rel = max(_hold_counts(got["n_inliers"], want["n_inliers"],
                            "14b: n_inliers", fails),
               _hold_counts(got["n_matches"], want["n_matches"],
                            "14b: n_matches", fails))
-    pyramid = [(int(i), int(got["n_inliers"][i]), int(want["n_inliers"][i]))
-               for i in np.nonzero(~held)[0]]
+    # the records of frames 27, 30, 33 (each call returns the frame before's)
+    shown = [(i, int(got["n_inliers"][i]), int(want["n_inliers"][i]))
+             for i in (28, 31, 34)]
     if got["n_kfs"] != int(data["trk_n_kfs"]):
         fails.append(f"14b: {got['n_kfs']} keyframes, JAX "
                      f"{int(data['trk_n_kfs'])}")
@@ -2181,9 +2202,8 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
           f"{got['warm']} warm, {trk.fps:.3f} frames/s timed; keyframes at "
           f"{got['kf_frames'].tolist()} (JAX "
           f"{data['trk_kf_frames'].tolist()}), |dT_cw| {dT:.2e}, counts "
-          f"within {rel:.4f} (inliers on BENCH_PYRAMID_FRAMES, held by "
-          f"their witness on the CPU: (record, port, JAX) {pyramid}), "
-          f"{got['n_pts']} points (JAX "
+          f"within {rel:.4f} on every record ((record, port, JAX) inliers "
+          f"{shown}), {got['n_pts']} points (JAX "
           f"{int(data['trk_n_pts'])}), ATE {ate:.5f} m (JAX {jax_ate:.5f}), "
           f"launches {launches['tracking']} on {card}", flush=True)
     err = _hold_calls(kept, f"14b call {BENCH_KEPT_CALL}", torch, dev)
@@ -2201,12 +2221,10 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
     dT = float(np.abs(got[:, :16] - want[:, :16]).max())
     if dT > _smoke.TRACKER_T_TOL:
         fails.append(f"14c: |dT_cw| {dT:.2e} > {_smoke.TRACKER_T_TOL}")
-    held = _smoke.bench_inliers_held(len(got))
-    rel = max(_hold_counts(got[:, 17][held], want[:, 17][held],
-                           "14c: n_inliers", fails),
+    rel = max(_hold_counts(got[:, 17], want[:, 17], "14c: n_inliers", fails),
               _hold_counts(got[:, 18], want[:, 18], "14c: n_matches", fails))
-    pyramid = [(int(f), int(got[f, 17]), int(want[f, 17]))
-               for f in np.nonzero(~held)[0]]
+    shown = [(f, int(got[f, 17]), int(want[f, 17])) for f in (27, 30, 33)
+             if f < len(got)]
     poses = synthetic.corridor_trajectory(BENCH_DEVICE_FRAMES)
     ate, jax_ate = _hold_ate(got[:, :16].reshape(-1, 4, 4),
                              want[:, :16].reshape(-1, 4, 4), poses, "14c",
@@ -2220,8 +2238,8 @@ def bench_phase(dev, card: str) -> tuple[dict, float]:
           f"{BENCH_DEVICE_WARM} warm, {dl.fps:.3f} frames/s through the "
           f"pinned, double-buffered copies; keyframes at "
           f"{np.nonzero(got[:, 19])[0].tolist()}, |dT_cw| {dT:.2e}, counts "
-          f"within {rel:.4f} (inliers on BENCH_PYRAMID_FRAMES, held by "
-          f"their witness on the CPU: (frame, port, JAX) {pyramid}), ATE "
+          f"within {rel:.4f} on every frame ((frame, port, JAX) inliers "
+          f"{shown}), ATE "
           f"{ate:.5f} m (JAX {jax_ate:.5f}), readbacks "
           f"per step {dl.record['readbacks'].tolist()}, launches "
           f"{launches['device loop']} on {card}", flush=True)

@@ -1114,9 +1114,10 @@ ACCURACY_CHECK_FRAMES = (60, 121)   # the matcher held on these frames
 # The corrected ATE under ACCURACY_ATE_MAX, under the raw ATE by at least
 # ACCURACY_ATE_GAIN (tests/test_loop_closure.py:87-112), and within
 # ACCURACY_ATE_REL x JAX's + ACCURACY_ATE_ABS (phase 11's rule for ATE).
-# T_cw is printed against TRACKER_T_TOL, not bounded: the card renders the
-# frames itself, and its renders differ from JAX's in the last bits of the
-# gray (tests/test_torch_accuracy.py holds T_cw on JAX's renders).
+# T_cw is printed against TRACKER_T_TOL, not bounded: over 270 frames the
+# float order of the solves moves it past that bound even on the CPU on
+# JAX's renders (frames 175-197, scripts/parity_loop_torch.py), and
+# tests/test_torch_accuracy.py holds it over the first 125 frames.
 ACCURACY_LOST_MAX = 3
 ACCURACY_ATE_MAX = 0.25
 ACCURACY_ATE_GAIN = 0.02
@@ -1569,33 +1570,6 @@ def load_bench_fixture() -> dict:
     """The JAX package's runs of bench.py's loops
     (scripts/make_torch_bench_fixture.py)."""
     return load_npz(BENCH_FIXTURE)
-
-
-# Frames of bench_runs.npz's runs (the corridor at 640x480) whose inlier
-# counts are held by tests/test_torch_bench.py's witnesses rather than by
-# TRACKER_COUNT_TOL. The port's pyramid once lay up to 2.5e-3 from the JAX
-# package's jitted one and moved these counts 3.4-5.2% in both legs; it is
-# now JAX's bit for bit (ops/image.py), and on the CPU both legs hold them
-# within 0.5%. On the card the `System` leg (fed JAX's renders) holds them
-# exactly, but the device loop over the card's own renders gives frame 27
-# 435 inliers to JAX's 458 (5.0%), as it did before the pyramid matched:
-# the card's render of frame 27 differs from the CPU's in 616 depth pixels
-# and 3 gray pixels, and fed the CPU's renders the card gives 456
-# (scripts/device_loop_renders_torch.py). The
-# witnesses: from JAX's device-loop state before frame 27 the port's
-# records equal JAX's, and its `System` from an empty map stays within
-# TRACKER_COUNT_TOL on every frame.
-BENCH_PYRAMID_FRAMES = (27, 30, 33)
-
-
-def bench_inliers_held(n: int, lag: int = 0) -> np.ndarray:
-    """(n,) bool: the records whose inlier count TRACKER_COUNT_TOL holds
-    against bench_runs.npz, all but those of BENCH_PYRAMID_FRAMES; record
-    i is frame i - lag's (1 for the `System` leg, whose deferred decision
-    returns the frame before's)."""
-    held = np.ones(n, bool)
-    held[[f + lag for f in BENCH_PYRAMID_FRAMES if f + lag < n]] = False
-    return held
 
 
 def bench_fixture_frames(data: dict, depth_factor: float) -> list:

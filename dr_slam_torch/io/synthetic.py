@@ -7,12 +7,39 @@ segmenter large planes; rendering is closed-form ray/plane and ray/slab
 intersection over the pixel grid, computed once per call (nothing is
 compiled). The trajectories and the clutter are numpy, as in the reference.
 
-The depth image equals the reference's to float32 rounding. The gray image
-does not, bit for bit: the texture's cell hash `fract(sin(a) * 43758.5453)`
-turns one ulp of difference in `sin` or in its argument (XLA contracts the
-argument into fused multiply-adds) into another cell brightness, so about
-10% of the pixels differ by more than half a grey level between the two
-packages (tests/test_torch_synthetic.py holds the share)."""
+`render_frame` computes the bits of the JAX package's jitted `render_frame`
+on an x86-64 CPU with AVX-512 and FMA, on the CPU and on the card alike:
+every operation is an elementwise float32 or float64 PyTorch op whose
+result IEEE arithmetic fixes, in the order XLA's CPU code runs it. The
+rules, read from XLA's optimized HLO, its LLVM IR and the objects'
+disassembly (jax 0.9.0):
+- The four dots stay dots (K = 3), emitted as loops, not Eigen or YNNPACK
+  calls: R^T t, the planes' normals against the origin and against each
+  ray are FMA chains in index order from 0; of a ray's direction
+  d_cam @ R_wc^T, LLVM packs x and y into one vector and rounds each
+  product and sum, and makes z an FMA chain (`_intersect`).
+- Divisions stay divisions (`(u - cx) / fx`, the plane hits, the slabs);
+  the port divides by tensors, as CUDA multiplies by the reciprocal of a
+  Python scalar divisor.
+- LLVM contracts a product into the add or subtract that consumes it when
+  the product has no other use, the add's first operand first:
+  `origin + t * d` is t * d - R^T t in one FMA, and in the texture the
+  cell coordinates `u * freq + phase`, the hash's argument (cu * 12.9898
+  fused into the add of cv * 78.233), the rectangles' offsets and sizes,
+  their brightness, the sinusoids' arguments and the final sum's
+  100, 9 and 5 terms are FMAs (`_texture` says which); the 42 and 36 terms
+  pass through a select and are rounded. The depth noise is
+  depth + sigma * normal in one FMA.
+- Without clutter boxes the phase offset is a constant zero, and XLA's
+  simplifier folds 0.3 * (idx * 1.7) and 2 * (idx * 1.7) into one product
+  by a float32 constant each.
+- `jnp.sin` / `jnp.cos` call glibc's sinf / cosf, which are not correctly
+  rounded: `utils/fmath.py` evaluates their algorithm (`torch.sin` differs
+  between Sleef on the CPU and CUDA's `sinf`, and from glibc on both).
+tests/test_torch_synthetic.py holds gray and depth bit-equal at 160x120,
+320x240 and 640x480 for the corridor, the office clutter and a small
+room, with depth noise too; `chip_smoke.py` phase 11 holds the card's
+renders bit-equal to the host CPU's."""
 
 from __future__ import annotations
 
@@ -23,6 +50,8 @@ import torch
 
 from dr_slam_torch import resolve_device
 from dr_slam_torch.geometry import se3
+from dr_slam_torch.utils import fmath
+from dr_slam_torch.utils.fmath import fma
 from dr_slam_torch.utils.prng import PRNGKey, normal
 
 
@@ -47,89 +76,146 @@ class BoxRoom:
         ], dtype=np.float32)
 
 
-_C_U = float(np.float32(12.9898))
+_F32 = np.float32
+# the texture's constants as float32, and the two products of constants
+# XLA's algebraic simplifier folds when the phase offset is zero:
+# 0.3 * (idx * 1.7) = idx * (0.3 * 1.7), 2 * (idx * 1.7) = idx * 3.4
+_PHASE = _F32(1.7)
+_PHASE_03 = float(_F32(0.3) * _F32(1.7))
+_PHASE_2 = float(_F32(2.0) * _F32(1.7))
+_RECT = ((3.0, 0), (11.0, 5), (0.8, 11))    # (cell frequency, hash key)
+
+
+def _cell_hashes(bases: list) -> list:
+    """Per rectangle layer, its five per-cell uniforms fract(sin(base +
+    (key + k) * 3.7) * 43758.5453), k = 0..4. A base is one value per cell,
+    so sinf runs once per distinct value, all layers in one call."""
+    uniq, inv, args = [], [], []
+    for base, (_, key) in zip(bases, _RECT):
+        u, i = torch.unique(base, return_inverse=True)
+        uniq.append(len(u))
+        inv.append(i)
+        args += [u + (key + k) * 3.7 if key + k else u for k in range(5)]
+    h = fmath.sinf(torch.cat(args)) * 43758.5453
+    fract = (h - torch.floor(h)).split([n for n in uniq for _ in range(5)])
+    return [[fract[5 * layer + k][i] for k in range(5)]
+            for layer, i in enumerate(inv)]
 
 
 def _texture(p: torch.Tensor, plane_idx: torch.Tensor,
-             phase_offset) -> torch.Tensor:
+             phase_offset: torch.Tensor | None) -> torch.Tensor:
     """Procedural gray texture at world points p (..., 3) on surfaces
     plane_idx (..., int64): isolated rectangles of per-cell pseudo-random
     brightness at three cell sizes (L-shaped corners for FAST), plus two
     sinusoids. plane_idx selects the in-plane (u, v) chart and the phase;
-    phase_offset makes clutter-box faces differ from the walls."""
+    phase_offset (None where the scene has no clutter boxes) makes box
+    faces differ from the walls.
+
+    Every `a + b * c` whose product has no other use is one FMA (`fmath.
+    fma`), as LLVM contracts XLA's loop fusion; `fma(a, b, c)` below says
+    which; sin and cos are glibc's (`fmath.sinf` / `fmath.cosf`)."""
     u = torch.where(plane_idx < 2, p[..., 2], p[..., 0])
     v = torch.where(plane_idx < 2, p[..., 1],
                     torch.where(plane_idx < 4, p[..., 2], p[..., 1]))
-    phase = plane_idx.to(torch.float32) * 1.7 + phase_offset
-
-    def rect_layer(freq, key):
-        tu = u * freq + phase
-        tv = v * freq + 0.3 * phase
+    fidx = plane_idx.to(torch.float32)
+    if phase_offset is None:
+        phase = fidx * float(_PHASE)
+        phase_03 = fidx * _PHASE_03
+    else:
+        phase = fma(fidx, _PHASE, phase_offset)
+        phase_03 = phase * 0.3
+    cells = []
+    for freq, _ in _RECT:
+        tu = fma(u, freq, phase)
+        tv = fma(v, freq, phase_03)
         cu = torch.floor(tu)
         cv = torch.floor(tv)
-
-        def cell_hash(k):
-            # the argument as XLA contracts it, cu * 12.9898 fused into the
-            # add of cv * 78.233 (the float32 product is exact in float64),
-            # and sin rounded from float64: one ulp here is a different
-            # cell brightness
-            a = (cu.double() * _C_U + (cv * 78.233).double()).float()
-            a = a + phase + (key + k) * 3.7
-            h = torch.sin(a.double()).float() * 43758.5453
-            return h - torch.floor(h)  # per-cell uniform [0,1)
-
-        rnd = cell_hash(0)
-        # each square's position and size jittered per cell, so corners do
-        # not alias onto their neighbours
-        ou = 0.05 + 0.25 * cell_hash(1)
-        ov = 0.05 + 0.25 * cell_hash(2)
-        su = 0.30 + 0.40 * cell_hash(3)
-        sv = 0.30 + 0.40 * cell_hash(4)
-        fu = tu - cu
-        fv = tv - cv
+        cells.append((tu - cu, tv - cv,
+                      fma(cu, 12.9898, cv * 78.233) + phase))
+    g = None
+    for layer, ((fu, fv, _), hashes) in enumerate(
+            zip(cells, _cell_hashes([c[2] for c in cells]))):
+        rnd, h1, h2, h3, h4 = hashes
+        ou = fma(h1, 0.25, 0.05)
+        ov = fma(h2, 0.25, 0.05)
+        su = fma(h3, 0.4, 0.3)
+        sv = fma(h4, 0.4, 0.3)
         inside = (fu > ou) & (fu < ou + su) & (fv > ov) & (fv < ov + sv)
-        return inside * (0.35 + 0.65 * rnd)
-
-    coarse = torch.sin(u * 2.1 + phase) + torch.cos(v * 1.7 + phase)
-    mid = torch.sin(u * 7.3 + 2.0 * phase) * torch.cos(v * 6.1 + phase)
-    g = (55.0 + 100.0 * rect_layer(3.0, 0) + 42.0 * rect_layer(11.0, 5)
-         + 36.0 * rect_layer(0.8, 11)
-         + 9.0 * coarse + 5.0 * mid)
+        val = fma(rnd, 0.65, 0.35)
+        if layer == 0:
+            g = torch.where(inside, fma(val, 100.0, 55.0), 55.0)
+        else:
+            g = g + torch.where(inside, val * (42.0, 36.0)[layer - 1], 0.0)
+    if phase_offset is None:
+        mid_arg = fma(fidx, _PHASE_2, u * 7.3)
+    else:
+        mid_arg = fma(u, 7.3, phase * 2.0)
+    # sin(coarse), sin(mid) in one call, cos(coarse), cos(mid) in another
+    sins = fmath.sinf(torch.stack([fma(u, 2.1, phase), mid_arg]))
+    coss = fmath.cosf(torch.stack([fma(v, 1.7, phase), fma(v, 6.1, phase)]))
+    g = fma(sins[0] + coss[0], 9.0, g)
+    g = fma(sins[1] * coss[1], 5.0, g)
     return torch.clamp(g, 0.0, 255.0)
+
+
+def _dot_chain(terms, neg: bool = False) -> torch.Tensor:
+    """sum of a_k * b_k in k order as one FMA chain from 0 (XLA's small
+    dots on the CPU), each product negated if `neg`."""
+    acc = None
+    for a, b in terms:
+        a = -a if neg else a
+        acc = a * b if acc is None else fma(a, b, acc)
+    return acc
 
 
 def _intersect(T_cw: torch.Tensor, planes: torch.Tensor, K4, height: int,
                width: int, boxes: torch.Tensor | None):
     """Each pixel's ray against the room's planes and the clutter boxes ->
     (t_hit (H, W), inf on a miss; surface index (H, W), 0-5 the planes,
-    0/2/4 a box face by its normal's axis; texture phase offset (H, W), 0
-    on the walls, (b + 1) * 5.1 on box b; ray directions (H, W, 3) with
-    z-depth 1; camera origin (3,))."""
+    0/2/4 a box face by its normal's axis; texture phase offset (H, W) or
+    None without boxes, (b + 1) * 5.1 on box b, 0 elsewhere; ray directions
+    (H, W, 3) with z-depth 1; R^T t (3,), the camera origin negated).
+
+    The sums are XLA's: R^T t, the plane normals' products with the origin
+    and with each ray are FMA chains in index order; of a ray's direction
+    d_cam @ R_wc^T the x and y are rounded after each product and add, the
+    z is an FMA chain (LLVM packs x and y into one vector and contracts only
+    z). Divisions stay divisions."""
     dev = T_cw.device
     f32 = torch.float32
-    T_wc = se3.inv_T(T_cw)
-    R_wc = T_wc[:3, :3]
-    origin = T_wc[:3, 3]
+    R = T_cw[:3, :3]
+    t = T_cw[:3, 3]
+    rtt = torch.stack([_dot_chain([(R[c, j], t[c]) for c in range(3)])
+                       for j in range(3)])
+    origin = -rtt
 
-    fx, fy, cx, cy = (float(k) for k in K4)
-    us = torch.arange(width, dtype=f32, device=dev)
-    vs = torch.arange(height, dtype=f32, device=dev)
-    vv, uu = torch.meshgrid(vs, us, indexing="ij")
-    d_cam = torch.stack([(uu - cx) / fx, (vv - cy) / fy, torch.ones_like(uu)],
-                        -1)
-    d_world = d_cam @ R_wc.T  # (H, W, 3); camera z-depth of o + t*d_world is t
+    fx, fy, cx, cy = (torch.tensor(float(k), dtype=f32, device=dev)
+                      for k in K4)
+    # divided by tensors: CUDA multiplies by the reciprocal of a Python
+    # scalar divisor
+    xs = (torch.arange(width, dtype=f32, device=dev) - cx) / fx
+    ys = (torch.arange(height, dtype=f32, device=dev) - cy) / fy
+    y, x = torch.meshgrid(ys, xs, indexing="ij")
+    d_world = torch.stack(
+        [(x * R[0, j] + y * R[1, j]) + R[2, j] for j in range(2)]
+        + [fma(y, R[1, 2], x * R[0, 2]) + R[2, 2]], -1)
 
     n = planes[:, :3]                     # (P, 3)
     d0 = planes[:, 3]                     # (P,)
-    denom = torch.einsum("hwc,pc->hwp", d_world, n)
-    numer = -(origin @ n.T + d0)          # (P,)
+    denom = torch.stack([_dot_chain([(d_world[..., c], n[q, c])
+                                     for c in range(3)])
+                         for q in range(planes.shape[0])], -1)
+    # -(origin . n + d0), origin . n the chain of -(R^T t) * n
+    numer = -(_dot_chain([(rtt[c], n[:, c]) for c in range(3)], neg=True)
+              + d0)
     t = numer / torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
     t = torch.where((t > 1e-3) & (denom < 0), t, torch.inf)  # front side only
     t_hit = torch.amin(t, -1)
     idx = torch.argmin(t, -1)
-    phase_off = torch.zeros_like(t_hit)
+    phase_off = None
 
     if boxes is not None and boxes.shape[0] > 0:
+        phase_off = torch.zeros_like(t_hit)
         d_safe = torch.where(torch.abs(d_world) < 1e-9, 1e-9, d_world)
         for b in range(boxes.shape[0]):
             bmin, bmax = boxes[b, :3], boxes[b, 3:]
@@ -147,7 +233,7 @@ def _intersect(T_cw: torch.Tensor, planes: torch.Tensor, K4, height: int,
             t_hit = torch.where(hit_b, tn, t_hit)
             idx = torch.where(hit_b, face_idx, idx)
             phase_off = torch.where(hit_b, (b + 1) * 5.1, phase_off)
-    return t_hit, idx, phase_off, d_world, origin
+    return t_hit, idx, phase_off, d_world, rtt
 
 
 def render_frame(T_cw: torch.Tensor, planes: torch.Tensor, K4,
@@ -163,18 +249,20 @@ def render_frame(T_cw: torch.Tensor, planes: torch.Tensor, K4,
     (`utils.prng.PRNGKey(i)`) for Gaussian depth noise, sigma 0.001 z, or
     0.0012 z^2 with quadratic_noise (a Kinect-like structured-light
     sensor)."""
-    t_hit, idx, phase_off, d_world, origin = _intersect(
+    t_hit, idx, phase_off, d_world, rtt = _intersect(
         T_cw, planes, K4, height, width, boxes)
     hit = torch.isfinite(t_hit)
     t_hit = torch.where(hit, t_hit, 0.0)
 
-    p_world = origin + t_hit[..., None] * d_world
+    # origin + t * d as XLA has it: t * d - R^T t, one FMA
+    p_world = torch.stack([fma(t_hit, d_world[..., c], -rtt[c])
+                           for c in range(3)], -1)
     gray = torch.where(hit, _texture(p_world, idx, phase_off), 0.0)
     depth = torch.where(hit, t_hit, 0.0)
     if depth_noise_key is not None:
         sigma = 0.0012 * depth * depth if quadratic_noise else 0.001 * depth
-        noise = sigma * normal(depth_noise_key, depth.shape, T_cw.device)
-        depth = torch.where(hit, depth + noise, 0.0)
+        noise = normal(depth_noise_key, depth.shape, T_cw.device)
+        depth = torch.where(hit, fma(sigma, noise, depth), 0.0)
     return gray, depth
 
 

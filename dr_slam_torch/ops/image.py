@@ -12,11 +12,12 @@ package's bit for bit, on the CPU and on the card."""
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dr_slam_torch.utils.fmath import fma32
 
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
@@ -68,12 +69,12 @@ def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
 
 def _fma32(a, b, c) -> np.ndarray:
     """float32 fused multiply-add on numpy values: a * b + c rounded once
-    to float32 (`_fma32_t`)."""
+    to float32 (`fmath.fma32`)."""
     def t(x, dtype):
         return torch.from_numpy(np.asarray(x, dtype))
 
-    return _fma32_t(t(a, np.float64), t(b, np.float64),
-                    t(c, np.float32)).numpy()
+    return fma32(t(a, np.float64), t(b, np.float64),
+                 t(c, np.float32)).numpy()
 
 
 def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -207,25 +208,6 @@ def _taps(n_in: int, n_out: int, lhs: bool, device: torch.device) -> tuple:
         for block in _tap_plan(n_in, n_out, lhs))
 
 
-def _fma32_t(a64: torch.Tensor, w64: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
-    """float32 fused multiply-add: a64 * w64 + c rounded once to float32
-    (a64, w64 float64 holding float32 values, c float32).
-
-    The float32 product is exact in float64; the float64 sum s has an exact
-    error e (TwoSum). Rounding s to float32 rounds a * w + c unless s is a
-    float32 tie and e != 0; no odd float64 is a float32 tie, so an even s
-    steps one float64 ulp toward a * w + c first."""
-    p = a64 * w64
-    c = c.double()
-    s = p + c
-    z = s - p
-    e = (p - (s - z)) + (c - z)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((e != 0) & even, torch.nextafter(s, e * math.inf), s)
-    return s.float()
-
-
 def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
     """One stage of the resize: x's `dim` (0: rows, the JAX dot's transposed
     left operand; 1: columns, its right operand) resized to n_out, every
@@ -244,8 +226,8 @@ def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
                 if s == 0:
                     acc = x.index_select(dim, idx) * w32.view(shape)
                 else:
-                    acc = _fma32_t(x64.index_select(dim, idx),
-                                   w64.view(shape), acc)
+                    acc = fma32(x64.index_select(dim, idx),
+                                w64.view(shape), acc)
             sums.append(acc)
         while len(sums) > 1:
             sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]

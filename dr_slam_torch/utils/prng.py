@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from dr_slam_torch.utils.fmath import fma, sqrtf
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -89,24 +91,19 @@ _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """a * b + c rounded once to float32, as XLA contracts it: the float32
-    product is exact in float64."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def _horner(x: torch.Tensor, coefs) -> torch.Tensor:
     """Highest degree first, one fused multiply-add per step."""
     r = torch.zeros_like(x)
     for c in coefs:
-        r = _fma(r, x, torch.full_like(x, c))
+        r = fma(r, x, c)
     return r
 
 
 def _log(v: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 log on the CPU, for v > 0: the mantissa m in [0.5, 1)
-    and exponent e, m moved to [sqrt(1/2), sqrt(2)) - 1, then the Cephes
-    polynomial and e * ln 2 in two parts."""
+    """XLA's float32 log on the CPU, for normal v > 0: the mantissa m in
+    [0.5, 1) and exponent e, m moved to [sqrt(1/2), sqrt(2)) - 1, then the
+    Cephes polynomial and e * ln 2 in two parts, each product that feeds
+    one add an FMA as LLVM contracts it."""
     bits = v.view(torch.int32)
     e = ((bits >> 23) & 0xFF).float() - 126.0
     x = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
@@ -115,17 +112,14 @@ def _log(v: torch.Tensor) -> torch.Tensor:
     x = (x - 1.0) + torch.where(low, x, torch.zeros_like(x))
     x2 = x * x
     x3 = x2 * x
-    c = [torch.full_like(x, k) for k in _LOG_P]
-    y = _fma(c[0], x, c[1])
-    y1 = _fma(c[3], x, c[4])
-    y2 = _fma(c[6], x, c[7])
-    y = _fma(y, x, c[2])
-    y1 = _fma(y1, x, c[5])
-    y2 = _fma(y2, x, c[8])
-    y = _fma(_fma(y, x3, y1), x3, y2) * x3
-    y = y + e * -2.12194440e-4
-    x = x - x2 * 0.5
-    return (x + y) + e * 0.693359375
+    y = fma(x, _LOG_P[0], _LOG_P[1])
+    y1 = fma(x, _LOG_P[3], _LOG_P[4])
+    y2 = fma(x, _LOG_P[6], _LOG_P[7])
+    y = fma(y, x, _LOG_P[2])
+    y1 = fma(y1, x, _LOG_P[5])
+    y2 = fma(y2, x, _LOG_P[8])
+    y = fma(fma(fma(y, x3, y1), x3, y2), x3, e * -2.12194440e-4)
+    return fma(e, 0.693359375, (x - x2 * 0.5) + y)
 
 
 def _log1p(x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +127,7 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
     log(1 + x) above."""
     x2 = x * x
     small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
-    small = x + _fma(torch.full_like(x, -0.5), x2, small)
+    small = x + fma(x2, -0.5, small)
     return torch.where(torch.abs(x) < 0.41421356237309504880, small,
                        _log(x + 1.0))
 
@@ -143,17 +137,16 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     exact and so differs from JAX's by up to 89 ulp)."""
     w = -_log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrtf(w) - 3.0)
     p = torch.zeros_like(x)
     for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE):
-        p = _fma(p, w, torch.where(lt, torch.full_like(x, a),
-                                   torch.full_like(x, b)))
+        p = fma(p, w, torch.where(lt, torch.full_like(x, a),
+                                  torch.full_like(x, b)))
     return p * x
 
 
 def normal(key: tuple, shape: tuple, device=None) -> torch.Tensor:
-    """jax.random.normal(key, shape) in float32: a uniform on
-    [nextafter(-1, 0), 1), then sqrt(2) * erf_inv(u). Within 2 ulp of
-    JAX's (XLA's log may round the other way)."""
+    """jax.random.normal(key, shape) in float32, bit for bit: a uniform on
+    [nextafter(-1, 0), 1), then sqrt(2) * erf_inv(u)."""
     u = uniform(key, shape, _ERFINV_LO, 1.0, device)
     return erfinv(u) * np.float32(math.sqrt(2.0))

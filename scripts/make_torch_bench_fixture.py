@@ -8,9 +8,7 @@ lags by exactly one frame, as the port's does when each frame's upload
 waits for the stream; and each tracked rotation is projected onto SO(3)
 after the second pose solve (`projected_tracked_pose`), as the port's
 `slam/track_step.py` does. Everything else is the JAX package's own, its
-jitted ORB pyramid included (the port's is the same bits). The inlier
-counts of frames 27, 30 and 33 are held by a witness
-(`dr_slam_torch._smoke.BENCH_PYRAMID_FRAMES`).
+jitted renderer and ORB pyramid included (the port's give the same bits).
 
 - "odo_": `bench_odometry`'s map, `System(tum_freiburg3(),
   enable_loop_closing=False)` over frames 0-11 of the mapping fixture
@@ -23,11 +21,10 @@ counts of frames 27, 30 and 33 are held by a witness
   lagged run's 985.)
 - "frames_": JAX's renders of the 60 frames of `corridor_trajectory(60)`
   as a camera gives them (uint8 gray, uint16 depth units, quantised as
-  bench.py quantises them). On the port's own float renders the tracking
-  leg's T_cw moves 4.3e-3 from the JAX run's on JAX's float renders, and
-  four frames' inliers 2-4.5%; on JAX's it holds
-  (scripts/parity_bench_torch.py). So the card's tracking leg is fed
-  these, as phase 13b is fed the office's.
+  bench.py quantises them). The port's renders are the same bits on the
+  CPU and on the card (dr_slam_torch/io/synthetic.py), so `chip_smoke.py`
+  phase 14b renders the leg's frames on the card, quantises them, checks
+  them against these byte for byte and runs the leg on them.
 - "trk_": `bench_tracking`'s loop, `System(tum_freiburg3())` (loop closing
   on, as bench.py has it) over those frames (float32 gray, depth in
   metres): per frame the state code, the keyframe flag, the reference

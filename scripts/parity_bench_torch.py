@@ -13,19 +13,19 @@ scripts/make_torch_bench_fixture.py), at full width (`tum_freiburg3()`,
    port's renders and on JAX's, against the fixture's run. For each: the
    exact records equal or not, the first frame where the run parts from
    JAX's (an exact field differs, T_cw beyond TRACKER_T_TOL or a count
-   beyond TRACKER_COUNT_TOL; for the device loop also leaving aside the
-   inliers of `_smoke.BENCH_PYRAMID_FRAMES`), the largest |T_cw -
-   T_cw_jax| entry and the frames over the bound, the largest relative
-   count gap and the frames over the bound, and the keyframes' frames.
+   beyond TRACKER_COUNT_TOL), the largest |T_cw - T_cw_jax| entry and the
+   frames over the bound, the largest relative count gap and the frames
+   over the bound, the inliers of frames 27, 30 and 33 (where the legs
+   once parted), and the keyframes' frames. First, how many pixels of the
+   port's float renders differ in their bits from JAX's.
 2. The pyramid: the JAX `DeviceLoopTracker` on JAX's renders (quantised)
    with its own jitted pyramid, from an empty map over frames 0-34; its
    carry before step 27 goes into the port, which runs on to step 34 with
    its own pyramid, with JAX's jitted pyramid swapped in
-   (tests/test_torch_fixture_parity.py's and tests/test_torch_bench.py's
-   witness). For each: the frames whose inliers differ from JAX's and the
-   largest T_cw gap.
-3. The pyramid's rounding, on frames BENCH_PYRAMID_FRAMES of JAX's
-   quantised renders: per level, the largest gap of the port's pyramid from the JAX
+   (tests/test_torch_fixture_parity.py's witness). For each: the frames
+   whose inliers differ from JAX's and the largest T_cw gap.
+3. The pyramid's rounding, on frames 27, 30 and 33 of JAX's quantised
+   renders: per level, the largest gap of the port's pyramid from the JAX
    package's jitted one and the count of differing pixels; and per
    (n_in, n_out) of the 640x480 pyramid, the entries where the port's
    resize weights differ from XLA's (read out by resizing an identity
@@ -51,13 +51,13 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import numpy as np  # noqa: E402
 
-from dr_slam_torch._smoke import (BENCH_PYRAMID_FRAMES,  # noqa: E402
-                                  DEVICE_LOOP_EXACT, TRACKER_COUNT_TOL,
-                                  TRACKER_T_TOL, bench_inliers_held,
+from dr_slam_torch._smoke import (DEVICE_LOOP_EXACT,  # noqa: E402
+                                  TRACKER_COUNT_TOL, TRACKER_T_TOL,
                                   count_gaps)
 
 DEVICE_FRAMES, DEVICE_WARM = 120, 25
 CARRY, LAST = 27, 34      # the witness: JAX's carry before step 27
+SHOWN = (27, 30, 33)      # frames whose inliers the legs once moved
 
 
 def _first(mask):
@@ -98,6 +98,9 @@ def _tracking_gaps(r: dict, want: dict) -> dict:
                 np.stack([want["n_inliers"], want["n_matches"]], 1),
                 np.stack([r[k] for k in keys], 1),
                 np.stack([want[k] for k in keys], 1))
+    # record f + 1 holds frame f's result (the deferred decision)
+    out["inliers_shown"] = [[f, int(r["n_inliers"][f + 1]),
+                             int(want["n_inliers"][f + 1])] for f in SHOWN]
     out["kf_frames"] = [r["kf_frames"].tolist(), want["kf_frames"].tolist()]
     return out
 
@@ -106,16 +109,8 @@ def _device_loop_gaps(rec, want) -> dict:
     cols = list(DEVICE_LOOP_EXACT)
     out = _gaps(rec[:, :16], want[:, :16], rec[:, 17:19], want[:, 17:19],
                 rec[:, cols], want[:, cols])
-    held = bench_inliers_held(len(rec))
-    rel = np.where(held, count_gaps(rec[:, 17], want[:, 17]), 0.0)
-    rel = np.maximum(rel, count_gaps(rec[:, 18], want[:, 18]))
-    dT = np.abs(rec[:, :16] - want[:, :16]).max(1)
-    out["first_apart_but_pyramid_frames"] = _first(
-        (rec[:, cols] != want[:, cols]).any(1) | (dT > TRACKER_T_TOL)
-        | (rel > TRACKER_COUNT_TOL))
-    out["pyramid_frames_inliers"] = [
-        [int(f), int(rec[f, 17]), int(want[f, 17])]
-        for f in np.nonzero(~held)[0]]
+    out["inliers_shown"] = [[f, int(rec[f, 17]), int(want[f, 17])]
+                            for f in SHOWN]
     out["kf_frames"] = [np.nonzero(r[:, 19])[0].tolist()
                         for r in (rec, want)]
     return out
@@ -133,11 +128,14 @@ def render_gaps(data: dict, cfg, tcfg) -> dict:
                                       K4=tcfg.camera.K4, device="cpu")
     own = [tuple(x.numpy() for x in seq.render(i)) for i in range(m)]
     theirs = jax_renders(cfg, m)
+    out = {"render_bits_differ": sum(
+        int((a.view(np.int32) != b.view(np.int32)).sum())
+        for po, pj in zip(own, theirs) for a, b in zip(po, pj))}
+    print(f"renders: {json.dumps(out)}", flush=True)
     with projected_tracked_pose():
         floats = load_script("make_torch_bench_fixture").jax_tracking_run(
             cfg, theirs[:n])
     stored = {k[4:]: v for k, v in data.items() if k.startswith("trk_")}
-    out = {}
     for name, frames, want in (
             ("port_renders", own, floats), ("jax_renders", theirs, floats),
             ("fixture_frames", _smoke.bench_fixture_frames(
@@ -212,7 +210,7 @@ def xla_resize_weights(n_in: int, n_out: int) -> np.ndarray:
 
 
 def pyramid_rounding(cfg) -> dict:
-    """The port's resize against XLA's on frames BENCH_PYRAMID_FRAMES of
+    """The port's resize against XLA's on frames SHOWN of
     JAX's quantised renders: per level of the 8-level pyramid, the largest gap
     of the port's levels from the JAX package's jitted ones and the count
     of differing pixels; and per (n_in, n_out) of that pyramid, the entries
@@ -225,9 +223,9 @@ def pyramid_rounding(cfg) -> dict:
 
     import bench_torch
 
-    frames = jax_renders(cfg, max(BENCH_PYRAMID_FRAMES) + 1)
+    frames = jax_renders(cfg, max(SHOWN) + 1)
     out = {}
-    for f in BENCH_PYRAMID_FRAMES:
+    for f in SHOWN:
         g = bench_torch._quantize(*frames[f], cfg.camera.depth_factor)[0]
         g = g.astype(np.float32)
         jax_levels = [np.asarray(x) for x in jimage.build_pyramid(

@@ -19,9 +19,7 @@ package's renders of the corridor.
 - The front-end leg's valid keypoints within 2% of JAX's `extract_orb`.
 - `main`: its line has bench.py's keys but `mfu_estimate`'s, plus the
   device loop's readbacks per frame; a leg that raises ends it with no
-  line; without a card it raises; the script imports nothing of JAX.
-- At 640x480, the witnesses for the inliers of both legs on
-  `_smoke.BENCH_PYRAMID_FRAMES` in dr_slam_torch/data/bench_runs.npz."""
+  line; without a card it raises; the script imports nothing of JAX."""
 
 import json
 import os
@@ -244,97 +242,3 @@ def test_imports_nothing_of_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True)
-
-
-def test_device_loop_pyramid_witness():
-    """The witness that holds the device loop's inliers on
-    `_smoke.BENCH_PYRAMID_FRAMES` (frames 27, 30, 33 of bench_runs.npz's
-    run at 640x480; on the card's renders the port's own run sits 5.0% from
-    JAX's at frame 27): the JAX `DeviceLoopTracker` over the fixture's
-    frames 0-33 gives the fixture's records; its carry before frame 27 goes
-    into the port, which with the JAX package's jitted pyramid in place of
-    its own (the same bits since the port computes XLA's resize) gives
-    JAX's records on frames 27-33, every integer and count equal and T_cw
-    within 1e-5 (observed 6.6e-7, and so with the port's own pyramid,
-    scripts/parity_bench_torch.py)."""
-    from dr_slam_tpu.config import tum_freiburg3
-    from dr_slam_tpu.slam.device_loop import DeviceLoopTracker as JTracker
-    from dr_slam_torch.ops import image as timage
-    from dr_slam_torch.slam.device_loop import DeviceLoopTracker
-
-    from torch_parity import carry_arrays, carry_to_port, jax_pyramid
-
-    data = _smoke.load_bench_fixture()
-    first = min(_smoke.BENCH_PYRAMID_FRAMES)
-    last = max(_smoke.BENCH_PYRAMID_FRAMES)
-    frames = list(zip(data["frames_gray"][:last + 1],
-                      data["frames_depth"][:last + 1]))
-    cfg = tum_freiburg3()
-
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        with shipped_codebooks(), projected_tracked_pose():
-            jt = JTracker(cfg)
-            for i, (g, d) in enumerate(frames):
-                if i == first:
-                    carried = carry_arrays(jt.carry)
-                jt.track(g, d, i / 30.0)
-            want = jt.flush()["records"]
-            np.testing.assert_allclose(want, data["dl_records"][:last + 1],
-                                       rtol=0, atol=1e-6)
-            own = timage.build_pyramid
-            timage.build_pyramid = jax_pyramid
-            try:
-                pt = DeviceLoopTracker(to_port(cfg), device="cpu")
-                pt.carry = carry_to_port(carried)
-                pt._initialized = True
-                for i in range(first, last + 1):
-                    pt.track(*frames[i], i / 30.0)
-                got = pt.flush()["records"]
-            finally:
-                timage.build_pyramid = own
-    finally:
-        torch.set_num_threads(old)
-    want = want[first:]
-    np.testing.assert_array_equal(got[:, 16:], want[:, 16:])
-    np.testing.assert_allclose(got[:, :16], want[:, :16], rtol=0, atol=1e-5)
-
-
-def test_tracking_leg_pyramid_witness():
-    """The witness for the `System` leg's inliers on
-    `_smoke.BENCH_PYRAMID_FRAMES` (its records 28, 31, 34: each call
-    returns the frame before's; the port's own run, whose pyramid is now
-    JAX's bit for bit, holds them within 0.3% on the CPU, exactly on the
-    card): with
-    the JAX package's jitted pyramid in place of its own,
-    the port's leg over the fixture's first 35 frames holds against the
-    fixture's run on every record, those included: states, keyframe flags
-    and reference keyframes exact, T_cw within 3e-3, inliers and matches
-    within 2%."""
-    from dr_slam_torch.config import tum_freiburg3
-    from dr_slam_torch.ops import image as timage
-
-    from torch_parity import jax_pyramid
-
-    data = _smoke.load_bench_fixture()
-    n = max(_smoke.BENCH_PYRAMID_FRAMES) + 2
-    cfg = tum_freiburg3()
-    frames = _smoke.bench_fixture_frames(data, cfg.camera.depth_factor)[:n]
-
-    old, own = torch.get_num_threads(), timage.build_pyramid
-    torch.set_num_threads(2)
-    timage.build_pyramid = jax_pyramid
-    try:
-        got = bench_torch.bench_tracking(n, cfg, "cpu", frames).record
-    finally:
-        timage.build_pyramid = own
-        torch.set_num_threads(old)
-    assert not _smoke.bench_inliers_held(n, lag=1)[-1]
-    for k in ("state", "is_keyframe", "ref_kf"):
-        np.testing.assert_array_equal(got[k], data[f"trk_{k}"][:n],
-                                      err_msg=k)
-    np.testing.assert_allclose(got["T_cw"], data["trk_T_cw"][:n], rtol=0,
-                               atol=T_TOL)
-    for k in ("n_inliers", "n_matches"):
-        _counts_within(got[k], data[f"trk_{k}"][:n], k)

@@ -11,12 +11,10 @@ JAX's renders, the port's two rules on the JAX side). No JAX runs here.
   reference keyframes exact, T_cw within 3e-3, inliers and matches within
   2% of the JAX run's.
 - The device-loop leg over the first 34 frames of the port's renders (25
-  warm, 9 through its staged copies): states, keyframe flags, reference keyframes
-  and their sequences exact, T_cw within 3e-3, matches within 2%, and
-  inliers within 2% on every frame but frames 27, 30 and 33
-  (`_smoke.BENCH_PYRAMID_FRAMES`, within 0.5% here, 5.0% at frame 27 on
-  the card's renders), which a witness holds (tests/test_torch_bench.py),
-  one readback per step."""
+  warm, 9 through its staged copies; the renders are JAX's bit for bit,
+  tests/test_torch_synthetic.py): states, keyframe flags, reference
+  keyframes and their sequences exact, T_cw within 3e-3, inliers and
+  matches within 2% on every frame, one readback per step."""
 
 import os
 import sys
@@ -86,9 +84,6 @@ def test_device_loop_leg_against_jax(data):
         np.testing.assert_array_equal(got[:, k], want[:, k], err_msg=name)
     assert np.nonzero(got[:, 19])[0].tolist() == [0, 10, 22]
     np.testing.assert_allclose(got[:, :16], want[:, :16], rtol=0, atol=T_TOL)
-    held = _smoke.bench_inliers_held(N)
-    assert not held[list(_smoke.BENCH_PYRAMID_FRAMES)].any()
-    assert _smoke.count_gaps(got[:, 17][held], want[:, 17][held]).max() \
-        <= COUNT_TOL
+    assert _smoke.count_gaps(got[:, 17], want[:, 17]).max() <= COUNT_TOL
     assert _smoke.count_gaps(got[:, 18], want[:, 18]).max() <= COUNT_TOL
     assert rec["readbacks"].tolist() == [1] * N

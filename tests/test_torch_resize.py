@@ -14,6 +14,7 @@ import torch
 from dr_slam_torch import config as tconfig
 from dr_slam_torch._smoke import FIXTURE
 from dr_slam_torch.ops import image as timage
+from dr_slam_torch.utils import fmath
 from dr_slam_tpu.ops import image as jimage
 
 PRESETS = ("tum_freiburg1", "tum_freiburg2", "tum_freiburg3", "icl_nuim",
@@ -94,8 +95,8 @@ def _fma_cases():
 
 
 def test_fma32_rounds_once():
-    """`_fma32` (numpy) and `_fma32_t` (torch) round a * b + c once, also
-    where the float64 sum is itself rounded onto a float32 tie."""
+    """`_fma32` (numpy) and `fmath.fma32` (torch) round a * b + c once,
+    also where the float64 sum is itself rounded onto a float32 tie."""
     a, b, c = _fma_cases()
     want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
                                 + Fraction(float(z)))
@@ -103,8 +104,8 @@ def test_fma32_rounds_once():
     naive = (a.astype(np.float64) * b + c).astype(np.float32)
     assert (naive != want).sum() > 0      # the cases reach a double rounding
     np.testing.assert_array_equal(timage._fma32(a, b, c), want)
-    got = timage._fma32_t(torch.from_numpy(a).double(),
-                          torch.from_numpy(b).double(), torch.from_numpy(c))
+    got = fmath.fma32(torch.from_numpy(a).double(),
+                      torch.from_numpy(b).double(), torch.from_numpy(c))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -3,14 +3,13 @@ scripts (scripts/run_synthetic_torch.py, scripts/train_vocab_torch.py
 without --tum) against the JAX package on the CPU.
 
 Tolerances: trajectories, clutter and the map state's integer tables
-exact; the hit mask exact and the surface index exact against a float64
+exact; gray and depth bit-equal to the JAX package's jitted
+`render_frame` (the port rounds every product, fused multiply-add, sum,
+sin and cos as XLA's CPU code does) at 160x120, 320x240 and 640x480, with
+depth noise too, and so on the corridor frames where the bench legs once
+parted from JAX's runs; the surface index also exact against a float64
 reference away from ties (pixels whose two nearest surfaces lie within
-1e-4 relative of each other, under 1%); depth within 1e-6 m, with depth
-noise too (the port's normal is within 2 ulp of JAX's); gray within 0.5
-grey levels on at least 99.9% of pixels (the texture's cell hash turns one
-ulp of its argument into another cell brightness: the port fuses the
-argument's first product as XLA does and rounds sin from float64, and
-matches on all but 0.02% of pixels); the map state's floats within
+1e-4 relative of each other, under 1%); the map state's floats within
 1e-5."""
 
 import json
@@ -34,8 +33,8 @@ from torch_parity import load_script, small_cfg, to_port
 torch.set_num_threads(2)
 
 SIZES = {(120, 160): (133.85, 134.8, 80.05, 61.8),
+         (240, 320): (267.7, 269.6, 160.0, 120.0),
          (480, 640): (535.4, 539.2, 320.1, 247.6)}
-GRAY_SHARE = 0.999
 
 
 def _scene(name):
@@ -110,7 +109,15 @@ def _surface_ref(T_cw, planes, K4, H, W, boxes):
     return np.where(np.isfinite(best), idx, -1), amb
 
 
-@pytest.mark.parametrize("size", list(SIZES), ids=["160x120", "640x480"])
+def _assert_bits_equal(got: np.ndarray, want: np.ndarray, what: str):
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    bad = got.view(np.int32) != want.view(np.int32)
+    assert not bad.any(), (what, int(bad.sum()),
+                           float(np.abs(got - want).max()))
+
+
+@pytest.mark.parametrize("size", list(SIZES),
+                         ids=["160x120", "320x240", "640x480"])
 @pytest.mark.parametrize("name", ["corridor", "clutter", "small_room"])
 def test_render_frame(name, size):
     H, W = size
@@ -127,12 +134,10 @@ def test_render_frame(name, size):
                              torch.from_numpy(troom.planes()), K4, H, W,
                              boxes=tb, quadratic_noise=qnoise)
     tg, td = tg.numpy(), td.numpy()
-    assert tg.dtype == np.float32 and tg.shape == (H, W)
-    np.testing.assert_array_equal(td > 0, d > 0)
+    assert tg.shape == (H, W)
     assert (d > 0).mean() > 0.99
-    np.testing.assert_allclose(td, d, rtol=0, atol=1e-6)
-    share = (np.abs(tg - g) <= 0.5).mean()
-    assert share >= GRAY_SHARE, share
+    _assert_bits_equal(td, d, "depth")
+    _assert_bits_equal(tg, g, "gray")
     t_hit, idx, *_ = ts._intersect(torch.from_numpy(T),
                                    torch.from_numpy(troom.planes()), K4, H,
                                    W, tb)
@@ -164,7 +169,23 @@ def test_depth_noise(name):
                                 quadratic_noise=qnoise)
         d = np.asarray(d)
         assert np.abs(d - np.asarray(clean)).max() > 1e-4
-        np.testing.assert_allclose(td.numpy(), d, rtol=0, atol=1e-6)
+        _assert_bits_equal(td.numpy(), d, "noisy depth")
+
+
+@pytest.mark.parametrize("frame", [27, 30, 33, 59, 60, 61])
+def test_bench_corridor_frames(frame):
+    """bench.py's corridor at 640x480 on the frames where, on the port's
+    renders of old, the device loop parted from JAX's run (27, 30, 33:
+    inliers; 59-61: the first frames apart): gray and depth bit-equal."""
+    K4 = SIZES[(480, 640)]
+    T = js.corridor_trajectory(frame + 1)[frame]
+    g, d = js.render_frame(jnp.asarray(T), jnp.asarray(js.BoxRoom().planes()),
+                           K4, 480, 640)
+    tg, td = ts.render_frame(torch.from_numpy(T),
+                             torch.from_numpy(ts.BoxRoom().planes()), K4,
+                             480, 640)
+    _assert_bits_equal(td.numpy(), np.asarray(d), "depth")
+    _assert_bits_equal(tg.numpy(), np.asarray(g), "gray")
 
 
 def test_synthetic_map_state():
@@ -196,8 +217,8 @@ def test_sequence_frames():
     assert isinstance(fr, RGBDFrame) and isinstance(fr.gray, np.ndarray)
     assert fr.timestamp == 2 / 30.0 and fr.depth.shape == (120, 160)
     jfr = jseq[2]
-    np.testing.assert_allclose(fr.depth, jfr.depth, rtol=0, atol=1e-6)
-    assert (np.abs(fr.gray - jfr.gray) <= 0.5).mean() >= GRAY_SHARE
+    _assert_bits_equal(fr.depth, jfr.depth, "depth")
+    _assert_bits_equal(fr.gray, jfr.gray, "gray")
     g, d = seq.render(2)
     assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
     if not torch.cuda.is_available():
