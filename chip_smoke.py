@@ -40,8 +40,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    tracker's frames, the keyframe count equal the JAX one, the pose and the
    point count stay within the bounds of dr_slam_torch/_smoke.py
    (`tracker_gaps`), and the matcher launch exactly twice per tracked
-   frame. Prints each keyframe's stage times (CUDA events around each
-   `kf.*` stage), the pass's frames/s and its peak device memory.
+   frame. Prints each keyframe's stage times (the stage profiler's host
+   time of each `kf.*` stage), the pass's frames/s and its peak device
+   memory; the stage profiler and its sync counter are on for the phase,
+   so its times carry their cost.
 5. system: `System(cfg, device="cuda")` loads the map of
    dr_slam_torch/data/reloc_corridor.npz (made by
    scripts/make_torch_reloc_fixture.py; 640x480, the map of frames 0-23)
@@ -58,9 +60,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    package's loop scenario (dr_slam_torch/data/loop_small.npz, made by
    scripts/make_torch_loop_fixture.py; that scenario's 320x240 config),
    held to the bounds of `loop_gaps`, then the global BA it dispatches,
-   resolved blocking. Prints loop.process and its pose-graph, re-anchoring
-   and seam-fuse stages between CUDA events, the BA's host dispatch time and
-   its device time on its own stream, and the peak device memory.
+   resolved blocking. Prints loop.process between CUDA events and its
+   pose-graph, re-anchoring and seam-fuse stages in host time (the stage
+   profiler and its sync counter on around `process`), the BA's host
+   dispatch time and its device time on its own stream, and the peak
+   device memory.
 7. device loop: `DeviceLoopTracker(cfg, device="cuda")` from an empty map
    over the 24 mapping-fixture frames as the camera gives them (uint8 gray,
    uint16 depth), 2 black frames, then frames 6-11 again (a teleport back
@@ -74,8 +78,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    its plain version on each attempt's verify inputs. Prints each step,
    wall ms per frame and frames/s (each frame synchronises on the readback
    of its flags), readbacks per frame, each keyframe's `kf.*` stage times
-   between CUDA events, the stage profiler's summary of the same spans
-   (on for this phase), and the peak device memory.
+   and the stage profiler's summary of every span (on for this phase, with
+   its sync counter, so the phase's times carry their cost; host time),
+   and the peak device memory.
 8. multi-sequence: `MultiSequenceTracker(cfg, 2, device="cuda")` over 12
    steps, sequence 0 on fixture frames 0-11 and sequence 1 on frames 4-15:
    sequence 0 equals phase 7's first 12 records (states, keyframe flags and
@@ -545,7 +550,7 @@ def loop_phase(dev, card: str) -> int:
 
     from dr_slam_torch._smoke import (LOOP_FIXTURE, LOOP_GBA_TOL, load_npz,
                                       loop_call, loop_closer, loop_gaps,
-                                      loop_small_cfg)
+                                      loop_small_cfg, stage_records)
     from dr_slam_torch.io.map_io import from_jax_state
     from dr_slam_torch.ops import match_cuda
     from dr_slam_torch.slam.loop_closing import LoopCloser
@@ -555,23 +560,24 @@ def loop_phase(dev, card: str) -> int:
     call = loop_call(data, "fire")
     st = from_jax_state(call["state"], dev)
     lc = loop_closer(LoopCloser, loop_small_cfg(), call, device=dev)
-    lc.stage_events = []
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
     match_cuda.gated_top2_hamming.launches = 0
     t0 = time.perf_counter()
-    (new, fired), ms = _stream_ms(
-        torch, dev, lambda: lc.process(st, call["cur_kf"], call["odom"]))
+    with stage_records() as records:
+        (new, fired), ms = _stream_ms(
+            torch, dev, lambda: lc.process(st, call["cur_kf"], call["odom"]))
     wall = (time.perf_counter() - t0) * 1e3
     launches = match_cuda.gated_top2_hamming.launches
     gaps, fails = loop_gaps(data, call, lc, st, new, fired)
-    stages = ", ".join(f"{n} {a.elapsed_time(b):.2f} ms"
-                       for n, a, b in lc.stage_events)
+    stages = ", ".join(f"{r.name} {r.ms:.2f} ms"
+                       for r in records if r.name.startswith("loop."))
     print(f"[loop] loop.process {ms:.2f} ms between CUDA events ({wall:.1f} "
-          f"ms wall), of which {stages or 'stages not timed on the CPU'}, on "
-          f"{card}; matcher launches {launches}", flush=True)
+          f"ms wall), of which {stages or 'no stage'} (host time, the stage "
+          f"profiler; all taken with it and its sync counter on), on {card}; "
+          f"matcher launches {launches}", flush=True)
     print(f"[loop] against the JAX correction: {json.dumps(gaps)}", flush=True)
     if fails:
         fail("loop closing disagrees with the JAX run: " + "; ".join(fails))
@@ -619,12 +625,8 @@ def device_loop_phase(dev, cfg, card: str) -> tuple[int, float, object]:
     held = torch.cuda.memory_allocated()
     match_cuda.gated_top2_hamming.launches = 0
     PROFILER.reset()
-    PROFILER.enable()
-    try:
-        run = run_device_loop(load_mapping_fixture(), order, cfg, dev,
-                              capture=True)
-    finally:
-        PROFILER.disable()
+    run = run_device_loop(load_mapping_fixture(), order, cfg, dev,
+                          capture=True)
     launches = match_cuda.gated_top2_hamming.launches
     profile = PROFILER.summary()
     PROFILER.reset()
@@ -645,10 +647,10 @@ def device_loop_phase(dev, cfg, card: str) -> tuple[int, float, object]:
         total = sum(ms for _, ms in stages)
         print(f"[device loop] keyframe {k}: " + ", ".join(
             f"{name} {ms:.2f} ms" for name, ms in stages)
-            + f"; total {total:.2f} ms between CUDA events on {card}",
+            + f"; total {total:.2f} ms host time on {card}",
             flush=True)
-    print(f"[device loop] stage profiler (CUDA events, read after one "
-          f"synchronise): {json.dumps(profile)}", flush=True)
+    print(f"[device loop] stage profiler (host time): {json.dumps(profile)}",
+          flush=True)
     n_kf = int(recs[:, 19].sum())
     if profile.get("kf.add", {}).get("count") != n_kf:
         fail(f"device loop: the stage profiler holds {profile}, not {n_kf} "
@@ -656,7 +658,8 @@ def device_loop_phase(dev, cfg, card: str) -> tuple[int, float, object]:
     seconds = sum(run.ms) / 1e3
     print(f"[device loop] {len(order)} frames in {seconds:.2f} s = "
           f"{len(order) / seconds:.3f} frames/s ({seconds / len(order) * 1e3:.1f}"
-          f" ms/frame wall; each frame synchronises on its flags' readback), "
+          f" ms/frame wall; each frame synchronises on its flags' readback; "
+          f"the stage profiler and its sync counter on), "
           f"readbacks per frame {json.dumps(tr.readbacks)}, peak device "
           f"memory {peak_gib:.3f} GiB above what the earlier phases held, "
           f"on {card}", flush=True)
@@ -2427,12 +2430,14 @@ def main() -> None:
         print(f"[tracker] keyframe {k} ({what}, frame "
               f"{gaps['kf_frames'][k]}): "
               + ", ".join(f"{name} {ms:.2f} ms" for name, ms in stages)
-              + f"; total {total:.2f} ms device time (CUDA events) on {card}",
+              + f"; total {total:.2f} ms host time (the stage profiler) on "
+              f"{card}",
               flush=True)
     passes = [sum(ms for _, ms in st) for st in run.keyframes[1:]]
     per_kf = sum(passes) / max(len(passes), 1)
     print(f"[tracker] {n} frames from an empty map in {run.seconds:.2f} s = "
-          f"{n / run.seconds:.3f} frames/s (synchronised per frame), "
+          f"{n / run.seconds:.3f} frames/s (synchronised per frame, with "
+          f"the stage profiler and its sync counter on), "
           f"{len(passes)} local-mapping passes at {per_kf:.2f} ms per keyframe, "
           f"peak device memory {peak_gib:.3f} GiB above what the earlier phases "
           f"held, on {card}", flush=True)

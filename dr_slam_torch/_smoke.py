@@ -196,43 +196,67 @@ class TrackerRun(NamedTuple):
     tracker: object      # the Tracker, flushed
     launches: list       # matcher launches per frame
     seconds: float       # wall time of the frames (synchronised per frame)
-    keyframes: list      # per insertion [(stage, device ms)]; cuda only
+    keyframes: list      # per insertion [(stage, host ms)]
+
+
+@contextlib.contextmanager
+def stage_records():
+    """The stage profiler on while open (and as it was after); yields a
+    list that receives, on exit, the profiler's records of the spans
+    opened inside."""
+    from dr_slam_torch.utils.profiling import PROFILER
+
+    was, first = PROFILER.enabled, len(PROFILER.records)
+    records = []
+    PROFILER.enable()
+    try:
+        yield records
+    finally:
+        if not was:
+            PROFILER.disable()
+        records.extend(PROFILER.records[first:])
+
+
+def keyframe_stages(records) -> list:
+    """Per keyframe insertion [(stage, host ms)]: the `kf.*` spans among
+    the profiler's `records`, a new insertion at each `kf.add`."""
+    keyframes = []
+    for r in records:
+        if r.name == "kf.add":
+            keyframes.append([])
+        if r.name.startswith("kf.") and keyframes and r.end_ns is not None:
+            keyframes[-1].append((r.name, r.ms))
+    return keyframes
 
 
 def run_tracker(data: dict, cfg, device) -> TrackerRun:
     """The port's Tracker from an empty map over the fixture's frames, fed
     as the JAX tracker was (gray as float32, depth as d16 / depth_factor in
     float32), synchronised after each frame so the deferred decision lags
-    by exactly one frame. On the GPU each keyframe stage is timed with a
-    pair of CUDA events."""
+    by exactly one frame. Each keyframe stage is timed by the stage
+    profiler."""
     from dr_slam_torch.ops.match_cuda import gated_top2_hamming
     from dr_slam_torch.slam.tracking import Tracker
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     tracker = Tracker(cfg, device=dev)
-    if cuda:
-        tracker.stage_events = []
     results, launches = [], []
-    t0 = time.perf_counter()
-    for i in range(len(data["gray"])):
-        gray = data["gray"][i].astype(np.float32)
-        depth = (data["depth"][i] / cfg.camera.depth_factor).astype(np.float32)
-        before = gated_top2_hamming.launches
-        results.append(tracker.process_frame(gray, depth, i / 30.0))
-        if cuda:
-            torch.cuda.synchronize()
-        launches.append(gated_top2_hamming.launches - before)
-    seconds = time.perf_counter() - t0
-    tracker.flush()
-    keyframes = []
-    if cuda:
-        torch.cuda.synchronize()
-        for name, a, b in tracker.stage_events:
-            if name == "kf.add":
-                keyframes.append([])
-            keyframes[-1].append((name, a.elapsed_time(b)))
-    return TrackerRun(results, tracker, launches, seconds, keyframes)
+    with stage_records() as records:
+        t0 = time.perf_counter()
+        for i in range(len(data["gray"])):
+            gray = data["gray"][i].astype(np.float32)
+            depth = (data["depth"][i]
+                     / cfg.camera.depth_factor).astype(np.float32)
+            before = gated_top2_hamming.launches
+            results.append(tracker.process_frame(gray, depth, i / 30.0))
+            if cuda:
+                torch.cuda.synchronize()
+            launches.append(gated_top2_hamming.launches - before)
+        seconds = time.perf_counter() - t0
+        tracker.flush()
+    return TrackerRun(results, tracker, launches, seconds,
+                      keyframe_stages(records))
 
 
 # Bounds of a Tracker run against the JAX outputs in the mapping fixture.
@@ -564,7 +588,7 @@ class DeviceLoopRun(NamedTuple):
     tracker: object      # the DeviceLoopTracker
     launches: list       # matcher launches per frame
     ms: list             # wall ms per frame (the step reads back its flags)
-    keyframes: list      # per insertion [(stage, device ms)]; cuda only
+    keyframes: list      # per insertion [(stage, host ms)]
     verify_calls: list   # the matcher's inputs inside _reloc_attempt
 
 
@@ -579,8 +603,8 @@ def device_loop_frames(mdata: dict, order) -> list:
 def run_device_loop(mdata: dict, order, cfg, device,
                     capture: bool = False) -> DeviceLoopRun:
     """The port's DeviceLoopTracker from an empty map over the mapping
-    fixture's frames in `order`, frame n at timestamp n / 30. On the GPU
-    each keyframe stage is timed with a pair of CUDA events. With
+    fixture's frames in `order`, frame n at timestamp n / 30. Each
+    keyframe stage is timed by the stage profiler. With
     `capture`, the matcher's inputs inside `_reloc_attempt` are kept."""
     from dr_slam_torch.ops.match_cuda import gated_top2_hamming
     from dr_slam_torch.slam import device_loop, map_ops
@@ -588,8 +612,6 @@ def run_device_loop(mdata: dict, order, cfg, device,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     tr = device_loop.DeviceLoopTracker(cfg, device=dev)
-    if cuda:
-        tr.stage_events = []
     kernel, reloc = map_ops.gated_top2_hamming, device_loop._reloc_attempt
     inside, calls = [False], []
 
@@ -609,25 +631,20 @@ def run_device_loop(mdata: dict, order, cfg, device,
     map_ops.gated_top2_hamming = watched_kernel
     launches, ms = [], []
     try:
-        for n, (g, d) in enumerate(device_loop_frames(mdata, order)):
-            before = gated_top2_hamming.launches
-            t0 = time.perf_counter()
-            tr.track(g, d, n / 30.0)
-            if cuda:
-                torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            launches.append(gated_top2_hamming.launches - before)
+        with stage_records() as records:
+            for n, (g, d) in enumerate(device_loop_frames(mdata, order)):
+                before = gated_top2_hamming.launches
+                t0 = time.perf_counter()
+                tr.track(g, d, n / 30.0)
+                if cuda:
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(gated_top2_hamming.launches - before)
     finally:
         map_ops.gated_top2_hamming = kernel
         device_loop._reloc_attempt = reloc
-    keyframes = []
-    if cuda:
-        torch.cuda.synchronize()
-        for name, a, b in tr.stage_events:
-            if name == "kf.add":
-                keyframes.append([])
-            keyframes[-1].append((name, a.elapsed_time(b)))
-    return DeviceLoopRun(tr.flush(), tr, launches, ms, keyframes, calls)
+    return DeviceLoopRun(tr.flush(), tr, launches, ms,
+                         keyframe_stages(records), calls)
 
 
 def expected_launches(states: list, relocs: list) -> list:

@@ -8,7 +8,9 @@ Gauss-Newton step weights the residuals once (Huber with a redescending
 cut), and conjugate gradients solves J^T J dx = -J^T r with products
 J^T (J v) from `torch.func.jvp` and one `torch.func.vjp` of the weighted
 residual function, as the reference uses `jax.linearize` and `jax.vjp`.
-Nothing is read back to the host."""
+Nothing is read back to the host. Each step's weighting and linearisation
+runs in a `ba.linearize` span and its solve in a `ba.cg` span; the callers
+build the problem in a `ba.problem` span."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from dr_slam_torch.geometry import se3
 from dr_slam_torch.ops.select import top_k
 from dr_slam_torch.optimize.pose_graph import _cg
 from dr_slam_torch.optimize.residuals import _tangent_basis
+from dr_slam_torch.utils.profiling import stage_span
 
 
 class StructBlocks(NamedTuple):
@@ -406,27 +409,29 @@ def bundle_adjust_shards(shards: list, K4, n_gn_iters: int = 8,
     L_cur = ln0 if has_struct else torch.zeros((0, 6), device=dev)
     for _ in range(n_gn_iters):
         lin = []
-        for q, (weights, res_at) in zip(shards, terms):
-            d = q.kf_pose.device
-            cur = tuple(x.to(d) for x in (T_cur, X_cur, P_cur, L_cur))
-            sws = tuple(None if w is None else torch.sqrt(w)
-                        for w in weights(*cur))
+        with stage_span("ba.linearize"):
+            for q, (weights, res_at) in zip(shards, terms):
+                d = q.kf_pose.device
+                cur = tuple(x.to(d) for x in (T_cur, X_cur, P_cur, L_cur))
+                sws = tuple(None if w is None else torch.sqrt(w)
+                            for w in weights(*cur))
 
-            def f(xi, dX, dP, dL, res_at=res_at, cur=cur, sws=sws):
-                return res_at(xi, dX, dP, dL, cur, sws)
+                def f(xi, dX, dP, dL, res_at=res_at, cur=cur, sws=sws):
+                    return res_at(xi, dX, dP, dL, cur, sws)
 
-            zero = tuple(torch.zeros(sh, device=d) for sh in shapes)
-            r0, vjp_fn = torch.func.vjp(f, *zero)
-            lin.append((d, f, zero, r0, vjp_fn))
+                zero = tuple(torch.zeros(sh, device=d) for sh in shapes)
+                r0, vjp_fn = torch.func.vjp(f, *zero)
+                lin.append((d, f, zero, r0, vjp_fn))
+            b = reduce([flat(vjp_fn(r0)) for _, _, _, r0, vjp_fn in lin])
 
         def hvp(v):
             return reduce([
                 flat(vjp_fn(torch.func.jvp(f, zero, unflat(v.to(d)))[1]))
                 for d, f, zero, _, vjp_fn in lin])
 
-        b = reduce([flat(vjp_fn(r0)) for _, _, _, r0, vjp_fn in lin])
-        dx = _cg(hvp, -b, n_cg_iters, damping)
-        dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
+        with stage_span("ba.cg"):
+            dx = _cg(hvp, -b, n_cg_iters, damping)
+            dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
         dxi, dX, dP, dL = unflat(dx)
         T_cur = se3.se3_exp(dxi * kf_freef) @ T_cur
         X_cur = X_cur + dX * pt_freef

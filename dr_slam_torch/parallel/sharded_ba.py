@@ -21,6 +21,7 @@ import torch
 
 from dr_slam_torch.optimize.global_ba import (BAProblem, StructBlocks,
                                               bundle_adjust_shards)
+from dr_slam_torch.utils.profiling import stage_span
 
 
 @dataclass(frozen=True)
@@ -105,7 +106,9 @@ def sharded_bundle_adjust(p: BAProblem, K4, mesh: Mesh, axis: str = "obs",
     """bundle_adjust with the observations sharded over the mesh; the same
     tuple as `bundle_adjust`, on mesh.devices[0]. Structural (plane/line)
     observation tables shard over the same axis."""
-    return bundle_adjust_shards(shard_problem(p, mesh, axis), K4, **kw)
+    with stage_span("ba.problem"):
+        shards = shard_problem(p, mesh, axis)
+    return bundle_adjust_shards(shards, K4, **kw)
 
 
 def batched_frontend(imgs, mesh: Mesh, axis: str = "data", **orb_kw):

@@ -118,7 +118,7 @@ def _pack_record(carry: LoopCarry, state_code, n_inl, n_mat, is_kf,
 
 
 def _init_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
-                 cfg: SlamConfig, stage_events=None):
+                 cfg: SlamConfig):
     """StereoInitialization (Tracking.cc:1549): the first frame with enough
     depth becomes KF0 at the origin, its planes and lines seed the map, and
     the Manhattan axes bootstrap from its planes (Map::FindManhattan,
@@ -151,7 +151,7 @@ def _init_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
         lm = torch.full((cfg.line.max_lines,), -1, dtype=torch.int64,
                         device=dev)
         bow = compute_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
-        with stage_span("kf.add", stage_events, dev):
+        with stage_span("kf.add"):
             st, kf_id = map_ops.add_keyframe(
                 carry.map_state, feats, T0, ts, no_match, pm, lm, bow, cfg)
         st = st._replace(R_wm=R_cm, manhattan_ok=mok)
@@ -168,17 +168,12 @@ def _init_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
 
 
 def _kf_branch(state: MapState, feats: FrameFeatures, out, T_cur, ts: float,
-               prev_kf, cfg: SlamConfig, stage_events=None):
+               prev_kf, cfg: SlamConfig):
     """The synchronous LocalMapping pass (Tracking.cc:3040 +
     LocalMapping.cc:28-80), in the reference device loop's order: add,
     cull, triangulate against `prev_kf`, fuse, local BA (the current pose
     is then the keyframe's), keyframe culling. -> (state, kf slot, T_cur)."""
     tr = cfg.tracking
-    dev = T_cur.device
-
-    def span(name):
-        return stage_span(name, stage_events, dev)
-
     bow = compute_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
     blocked = map_ops.creation_block_mask(
         state, feats.kp.uv, feats.kp_depth, T_cur, cfg.camera.K4)
@@ -186,29 +181,29 @@ def _kf_branch(state: MapState, feats: FrameFeatures, out, T_cur, ts: float,
         match_idx=out.plane_match, par_idx=out.plane_par,
         ver_idx=out.plane_ver,
         obs_world=se3.plane_to_world(T_cur, feats.planes.coeffs))
-    with span("kf.add"):
+    with stage_span("kf.add"):
         state, kf_id = map_ops.add_keyframe(
             state, feats, T_cur, ts, out.mp_idx, pm, out.line_match, bow,
             cfg, blocked=blocked)
     if tr.run_cull_on_keyframe:
-        with span("kf.cull_map"):
+        with stage_span("kf.cull_map"):
             state = map_ops.cull_map(state,
                                      merge_angle_cos=cfg.plane.merge_angle_cos,
                                      merge_dist=cfg.plane.merge_dist)
     if tr.run_triangulation:
-        with span("kf.triangulate"):
+        with stage_span("kf.triangulate"):
             state = map_ops.triangulate_with_kf(state, kf_id, prev_kf,
                                                 cfg.camera.K4)
     if tr.run_fuse_on_keyframe:
-        with span("kf.fuse"):
+        with stage_span("kf.fuse"):
             state = map_ops.fuse_new_points(state, kf_id,
                                             fuse_dist=tr.fuse_dist)
     if tr.run_ba_on_keyframe:
-        with span("kf.local_ba"):
+        with stage_span("kf.local_ba"):
             state = map_ba(state, cfg, center_kf=kf_id)
         T_cur = map_ops._row(state.kf_pose, kf_id)
     if tr.run_kf_culling:
-        with span("kf.cull_keyframe"):
+        with stage_span("kf.cull_keyframe"):
             state = map_ops.cull_one_keyframe(state)
     return state, kf_id, T_cur
 
@@ -266,8 +261,7 @@ def _reloc_attempt(carry: LoopCarry, feats: FrameFeatures, cfg: SlamConfig):
 
 
 def _track_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
-                  cfg: SlamConfig, localization_only: bool,
-                  stage_events=None):
+                  cfg: SlamConfig, localization_only: bool):
     """-> (carry, record, readbacks, relocalization attempted)."""
     dev = carry.T_cw.device
     tr = cfg.tracking
@@ -347,7 +341,7 @@ def _track_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
         need_kf = want_kf and not at_wall
     if need_kf:
         new_state, new_ref, T_post = _kf_branch(
-            state, feats, out, T_new, ts, ref_base, cfg, stage_events)
+            state, feats, out, T_new, ts, ref_base, cfg)
         last_kf_frame = carry.frame_id
         last_kf_inliers = n_inl.to(torch.int32)
     else:
@@ -366,15 +360,13 @@ def _track_branch(carry: LoopCarry, feats: FrameFeatures, ts: float,
 
 def device_track_step(carry: LoopCarry, gray, depth, ts: float,
                       cfg: SlamConfig, localization_only: bool = False,
-                      initialized: bool | None = None, stage_events=None):
+                      initialized: bool | None = None):
     """One frame: front-end extraction, tracking, and the keyframe /
     LocalMapping / LOST state machine. gray (H, W) uint8 or float32, depth
     integer sensor units (scaled on the device) or float32 metres, on the
     carry's device or the host. `initialized` is the host's knowledge that
     the map holds a keyframe (None: read it back). A frozen map
-    (`localization_only`) is initialized by definition. With
-    `stage_events` a list, each keyframe stage records CUDA events into
-    it. -> (carry', record (REC_SIZE,) float32 on the device, StepInfo)."""
+    (`localization_only`) is initialized by definition. -> (carry', record (REC_SIZE,) float32 on the device, StepInfo)."""
     dev = carry.T_cw.device
     gray, depth = ingest(gray, depth, cfg.camera, dev)
     feats = _extract_frame(gray, depth, cfg.camera, cfg.orb, cfg.plane,
@@ -386,15 +378,15 @@ def device_track_step(carry: LoopCarry, gray, depth, ts: float,
         reads += 1
     if localization_only or initialized:
         carry, rec, n, reloc = _track_branch(
-            carry, feats, ts, cfg, localization_only, stage_events)
+            carry, feats, ts, cfg, localization_only)
         return carry, rec, StepInfo(True, reads + n, reloc)
-    carry, rec, ok = _init_branch(carry, feats, ts, cfg, stage_events)
+    carry, rec, ok = _init_branch(carry, feats, ts, cfg)
     return carry, rec, StepInfo(ok, reads + 1, False)
 
 
 def device_track_chunk(carry: LoopCarry, gray_stack, depth_stack, ts_stack,
                        cfg: SlamConfig, localization_only: bool = False,
-                       initialized: bool | None = None, stage_events=None):
+                       initialized: bool | None = None):
     """N stacked frames in one call: the frames go to the device in one
     copy, then each runs `device_track_step`, so the records equal N
     `device_track_step` calls exactly (the reference's chunk is one
@@ -405,8 +397,7 @@ def device_track_chunk(carry: LoopCarry, gray_stack, depth_stack, ts_stack,
     recs, infos = [], []
     for g, d, ts in zip(grays, depths, ts_stack):
         carry, rec, info = device_track_step(
-            carry, g, d, float(ts), cfg, localization_only, initialized,
-            stage_events)
+            carry, g, d, float(ts), cfg, localization_only, initialized)
         initialized = info.initialized
         recs.append(rec)
         infos.append(info)
@@ -423,8 +414,7 @@ class DeviceLoopTracker:
     trajectory (raw, and recomposed from each frame's reference keyframe
     by `corrected_trajectory`). Per frame the tracker keeps the readbacks
     its step made (`readbacks`) and whether it attempted a relocalization
-    (`relocs`). With `stage_events` set to a list, each keyframe stage
-    records a pair of CUDA events into it."""
+    (`relocs`)."""
 
     def __init__(self, cfg: SlamConfig, map_state: MapState | None = None,
                  localization_only: bool = False, device=None):
@@ -440,7 +430,6 @@ class DeviceLoopTracker:
         self._loop_closer = None      # lazy; see loop_closing_epoch()
         self.readbacks: list[int] = []
         self.relocs: list[bool] = []
-        self.stage_events = None
 
     def _note(self, infos):
         for info in infos:
@@ -455,7 +444,7 @@ class DeviceLoopTracker:
         device."""
         self.carry, rec, info = device_track_step(
             self.carry, gray, depth, float(timestamp), self.cfg,
-            self.localization_only, self._initialized, self.stage_events)
+            self.localization_only, self._initialized)
         self._records.append(rec)
         self._ts.append(float(timestamp))
         self._note([info])
@@ -468,7 +457,7 @@ class DeviceLoopTracker:
         ts = [float(t) for t in np.asarray(timestamps)]
         self.carry, recs, infos = device_track_chunk(
             self.carry, gray_stack, depth_stack, ts, self.cfg,
-            self.localization_only, self._initialized, self.stage_events)
+            self.localization_only, self._initialized)
         self._records.append(recs)
         self._ts.extend(ts)
         self._note(infos)

@@ -121,16 +121,14 @@ def _refine_loop_rel(state: MapState, cur_kf: int, Xa, match_b, ok, T_rel,
 @dataclass
 class LoopCloser:
     """`LoopCloser(cfg, device=...)`; `device` defaults to cuda and raises
-    without a GPU unless "cpu" is passed. With `stage_events` set to a
-    list, the correction's stages (`loop.pose_graph`, `loop.reanchor`,
-    `loop.fuse`) record CUDA event pairs into it."""
+    without a GPU unless "cpu" is passed. The correction's stages run in
+    `stage_span`s (`loop.pose_graph`, `loop.reanchor`, `loop.fuse`)."""
     cfg: SlamConfig
     min_kf_gap: int = 10          # temporal exclusion window
     consistency_needed: int = 2   # consecutive detections (reference: 3)
     run_gba: bool = True
     gba_async: bool = True        # the detached global BA (LoopClosing.cc:625)
     device: object = None
-    stage_events: list = None
     dispatch_seconds: float = 0.0  # host time of the last dispatch_gba
     gba_events: tuple = None       # CUDA events around the last GBA's work
     _pending_gba: object = None
@@ -348,15 +346,15 @@ class LoopCloser:
             fixed=fixed,
             edge_robust=torch.tensor([wgt <= 1.0 for wgt in weights],
                                      device=dev))
-        with stage_span("loop.pose_graph", self.stage_events, dev):
+        with stage_span("loop.pose_graph"):
             new_poses = optimize_pose_graph(g)
-        with stage_span("loop.reanchor", self.stage_events, dev):
+        with stage_span("loop.reanchor"):
             state = _reanchor_map(state, new_poses)
 
         # SearchAndFuse (LoopClosing.cc:633): the recent keyframes' points
         # merge into their older duplicates around the seam, at most K a
         # call
-        with stage_span("loop.fuse", self.stage_events, dev):
+        with stage_span("loop.fuse"):
             K = state.kf_mp.shape[1]
             recent_slots = valid & (seq >= seq[cur_kf] - 5)
             seam_np = (_host(state.pt_valid)
@@ -371,12 +369,18 @@ class LoopCloser:
                     state, torch.from_numpy(batch).to(dev), fuse_dist=0.10)
 
         if self.run_gba and not self.gba_async:
-            kf_pose, pt_pos, pl_coef, ln_ep = bundle_adjust(
-                problem_from_state(state), self.cfg.camera.K4,
-                n_gn_iters=4, n_cg_iters=30)
+            kf_pose, pt_pos, pl_coef, ln_ep = self._global_ba(state)
             state = state._replace(kf_pose=kf_pose, pt_pos=pt_pos,
                                    pl_coef=pl_coef, ln_ep=ln_ep)
         return state
+
+    def _global_ba(self, state: MapState) -> tuple:
+        """The global BA over the whole map: 4 Gauss-Newton steps of 30 CG
+        iterations, the problem built in a `ba.problem` span."""
+        with stage_span("ba.problem"):
+            prob = problem_from_state(state)
+        return bundle_adjust(prob, self.cfg.camera.K4, n_gn_iters=4,
+                             n_cg_iters=30)
 
     # ------------------------------------------------------------------
     def dispatch_gba(self, state: MapState, guard_gen: int = 0) -> None:
@@ -397,15 +401,12 @@ class LoopCloser:
             with torch.cuda.stream(stream):
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(stream)
-                out = bundle_adjust(problem_from_state(state),
-                                    self.cfg.camera.K4, n_gn_iters=4,
-                                    n_cg_iters=30)
+                out = self._global_ba(state)
                 event = torch.cuda.Event(enable_timing=True)
                 event.record(stream)
             self.gba_events = (start, event)
         else:
-            out = bundle_adjust(problem_from_state(state), self.cfg.camera.K4,
-                                n_gn_iters=4, n_cg_iters=30)
+            out = self._global_ba(state)
         self.dispatch_seconds = time.perf_counter() - t0
         self._pending_gba = (out, state.kf_valid, state.kf_seq,
                              state.pt_valid, state.pl_valid, state.ln_valid,

@@ -109,34 +109,37 @@ class System:
         estimate's angular error is then logged as `rot_residual` (the
         reference's GroundTruth_R diagnostics), at the cost of a readback
         of the pose."""
-        if self.only_tracking:
-            res = self.tracker.process_localization_only(gray, depth,
-                                                         timestamp)
-        else:
-            res = self.tracker.process_frame(gray, depth, timestamp)
-        if gt_R is not None:
-            T = to_numpy(res.T_cw)
-            res.rot_residual_deg = rotation_residual_deg(T[:3, :3],
-                                                         np.asarray(gt_R))
-            self.metrics.log("rot_residual", frame=self.tracker.frame_id,
-                             deg=res.rot_residual_deg)
-        if self.tracker.consume_kf_event():
-            if self.detector is not None:
-                g = torch.as_tensor(gray, dtype=torch.float32,
-                                    device=self.device)
-                self.last_detections = self.detector.detect(
-                    torch.stack([g, g, g], -1))
-            if self.enable_loop_closing:
-                self._run_loop_closing()
-        if self._viewer is not None:
-            self._viewer.update(res)
-        if self._live is not None:
-            cfg, dev = self.cfg, self.device
-            self._live.update(
-                res, gray=gray,
-                feats_fn=lambda: extract_frame(gray, depth, cfg, dev),
-                detections=self.last_detections)
-        return res
+        # the root span: the whole call, under the id the tracker gives
+        # this frame
+        with stage_span("track.call", frame=self.tracker.frame_id + 1):
+            if self.only_tracking:
+                res = self.tracker.process_localization_only(gray, depth,
+                                                             timestamp)
+            else:
+                res = self.tracker.process_frame(gray, depth, timestamp)
+            if gt_R is not None:
+                T = to_numpy(res.T_cw)
+                res.rot_residual_deg = rotation_residual_deg(T[:3, :3],
+                                                             np.asarray(gt_R))
+                self.metrics.log("rot_residual", frame=self.tracker.frame_id,
+                                 deg=res.rot_residual_deg)
+            if self.tracker.consume_kf_event():
+                if self.detector is not None:
+                    g = torch.as_tensor(gray, dtype=torch.float32,
+                                        device=self.device)
+                    self.last_detections = self.detector.detect(
+                        torch.stack([g, g, g], -1))
+                if self.enable_loop_closing:
+                    self._run_loop_closing()
+            if self._viewer is not None:
+                self._viewer.update(res)
+            if self._live is not None:
+                cfg, dev = self.cfg, self.device
+                self._live.update(
+                    res, gray=gray,
+                    feats_fn=lambda: extract_frame(gray, depth, cfg, dev),
+                    detections=self.last_detections)
+            return res
 
     def _run_loop_closing(self):
         if self._loop_closer is None:
@@ -147,14 +150,14 @@ class System:
         # merge a global BA that has finished, never waiting for one still
         # running (the reference's detached GBA thread joining back,
         # LoopClosing.cc:691)
-        with stage_span("loop.resolve_gba", device=self.device):
+        with stage_span("loop.resolve_gba"):
             merged = self._loop_closer.resolve_gba(tr.map_state,
                                                    guard_gen=tr._hard_gen)
         if merged is not None:
             tr.map_state = merged
             tr._map_gen += 1   # additive: pending frames re-apply stats
             self.metrics.log("gba_merged", kf=tr.ref_kf)
-        with stage_span("loop.process", device=self.device):
+        with stage_span("loop.process"):
             new_state, corrected = self._loop_closer.process(
                 tr.map_state, tr.ref_kf, odom=tr.kf_odom_host)
         if corrected:
@@ -204,6 +207,7 @@ class System:
     def block_until_ready(self):
         """Wait for the device work enqueued so far."""
         if self.device.type == "cuda":
+            PROFILER.count_sync()
             torch.cuda.synchronize(self.device)
 
     # -- savers (System.cc:379-562) -------------------------------------------

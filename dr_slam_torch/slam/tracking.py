@@ -17,13 +17,13 @@ host reads back that one bundle, and per keyframe one packed bundle
 full-map projection check; the matcher runs there too), and a young map
 that cannot be relocalized into is reset.
 
-Each keyframe stage runs in a `stage_span` named as the reference's
-profiler spans (`kf.add`, `kf.cull_map`, ...), and so does the deferred
-frame's dispatch (`track.dispatch`, `track.device`) and its readback
-(`resolve.readback`): with `utils.profiling.PROFILER` enabled they are
-timed there. With `stage_events` set to a list, each keyframe stage also
-records a pair of CUDA events into it, for the caller to read once it has
-synchronised."""
+Every stage runs in a `stage_span` named as the reference's profiler spans
+(`kf.add`, `kf.cull_map`, ..., `kf.local_ba` with the `ba.*` phases inside
+it), and so do the deferred frame's dispatch (`track.dispatch`, with the
+front-end's `frame.*` and the step's `track.*` stages inside it), its
+resolve (`track.resolve`, with `resolve.readback`) and relocalization
+(`track.relocalize`): with `utils.profiling.PROFILER` enabled they are
+timed there on the host, with the host syncs counted in each."""
 
 from __future__ import annotations
 
@@ -61,13 +61,15 @@ def map_ba(state: MapState, cfg: SlamConfig, center_kf=None) -> MapState:
     Gauss-Newton steps of 24 CG iterations."""
     ws = cfg.tracking.use_struct_in_ba
     if cfg.tracking.use_local_ba and center_kf is not None:
-        prob, win = local_problem_from_state(
-            state, center_kf, window=cfg.tracking.local_ba_window,
-            with_struct=ws)
+        with stage_span("ba.problem"):
+            prob, win = local_problem_from_state(
+                state, center_kf, window=cfg.tracking.local_ba_window,
+                with_struct=ws)
         out = bundle_adjust(prob, cfg.camera.K4, n_gn_iters=4, n_cg_iters=24)
         kf_pose = state.kf_pose.index_copy(0, win, out[0])
     else:
-        prob = problem_from_state(state, with_struct=ws)
+        with stage_span("ba.problem"):
+            prob = problem_from_state(state, with_struct=ws)
         out = bundle_adjust(prob, cfg.camera.K4, n_gn_iters=4, n_cg_iters=24)
         kf_pose = out[0]
     return state._replace(
@@ -126,6 +128,8 @@ class _HostBundle:
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
+            if PROFILER.enabled and not self.event.query():
+                PROFILER.count_sync()
             self.event.synchronize()
         return self.host.numpy()
 
@@ -155,7 +159,6 @@ class Tracker:
     kf_pose_host: dict = field(default_factory=dict)  # slot -> 4x4 at insert
     kf_seq_host: dict = field(default_factory=dict)   # slot -> insertion seq
     kf_odom_host: dict = field(default_factory=dict)  # seq -> (prev seq, 4x4)
-    stage_events: list = None   # [(name, start, end)] CUDA events per stage
     _seq_counter: int = 0
     _pending: object = field(default_factory=collections.deque)
     _last_inliers: int = 0
@@ -176,11 +179,6 @@ class Tracker:
         self.velocity = torch.eye(4, device=dev)
         self.R_cm = torch.eye(3, device=dev)
 
-    def _span(self, name: str):
-        """A profiler block named as the reference's span; with
-        `stage_events` set, also a pair of CUDA events around it."""
-        return stage_span(name, self.stage_events, self.device)
-
     def _frame(self, gray, depth):
         """The frame as float32 tensors on the device: depth in metres, as
         the reference's Tracker casts it (System.track_rgbd's contract)."""
@@ -199,19 +197,19 @@ class Tracker:
         if self.state == TrackState.NOT_INITIALIZED:
             res = self._initialize(extract_frame(gray, depth, cfg, self.device),
                                    timestamp)
-        elif cfg.tracking.deferred_readback:
-            self._resolve_pending(force=False)
-            if self.state == TrackState.LOST:
-                res = self._relocalize(
-                    extract_frame(gray, depth, cfg, self.device), timestamp)
-            else:
-                res = self._track_deferred(gray, depth, timestamp)
-        elif self.state == TrackState.LOST:
-            res = self._relocalize(
-                extract_frame(gray, depth, cfg, self.device), timestamp)
         else:
-            res = self._track(extract_frame(gray, depth, cfg, self.device),
-                              timestamp)
+            if cfg.tracking.deferred_readback:
+                self._resolve_pending(force=False)
+            if self.state == TrackState.LOST:
+                with stage_span("track.relocalize"):
+                    res = self._relocalize(
+                        extract_frame(gray, depth, cfg, self.device),
+                        timestamp)
+            elif cfg.tracking.deferred_readback:
+                res = self._track_deferred(gray, depth, timestamp)
+            else:
+                res = self._track(extract_frame(gray, depth, cfg, self.device),
+                                  timestamp)
 
         self.trajectory.append((timestamp, res.T_cw))
         self.traj_rel.append((timestamp, self.ref_kf,
@@ -305,7 +303,7 @@ class Tracker:
         lm = torch.full((cfg.line.max_lines,), -1, dtype=torch.int64,
                         device=dev)
         bow = compute_bow(feats.kp.desc, feats.kp.valid, cfg.map.vocab_words)
-        with self._span("kf.add"):
+        with stage_span("kf.add"):
             self.map_state, kf_id = map_ops.add_keyframe(
                 self.map_state, feats, T0, ts, no_match, pm, lm, bow, cfg)
         self.map_state = self.map_state._replace(
@@ -400,12 +398,12 @@ class Tracker:
             ver_idx=out.plane_ver,
             obs_world=se3.plane_to_world(T_cur, feats.planes.coeffs))
         prev_kf = torch.tensor(self.ref_kf, device=dev)
-        with self._span("kf.add"):
+        with stage_span("kf.add"):
             self.map_state, kf_id = map_ops.add_keyframe(
                 self.map_state, feats, T_cur, ts, out.mp_idx, pm,
                 out.line_match, bow, cfg, blocked=blocked)
         if tr.run_cull_on_keyframe:
-            with self._span("kf.cull_map"):
+            with stage_span("kf.cull_map"):
                 self.map_state = map_ops.cull_map(
                     self.map_state, merge_angle_cos=cfg.plane.merge_angle_cos,
                     merge_dist=cfg.plane.merge_dist)
@@ -413,23 +411,23 @@ class Tracker:
         # duplicates, local BA, then cull one redundant keyframe. kf_id
         # stays a device scalar throughout.
         if tr.run_triangulation:
-            with self._span("kf.triangulate"):
+            with stage_span("kf.triangulate"):
                 self.map_state = map_ops.triangulate_with_kf(
                     self.map_state, kf_id, prev_kf, cfg.camera.K4)
         if tr.run_fuse_on_keyframe:
-            with self._span("kf.fuse"):
+            with stage_span("kf.fuse"):
                 self.map_state = map_ops.fuse_new_points(
                     self.map_state, kf_id, fuse_dist=tr.fuse_dist)
         if tr.run_ba_on_keyframe:
-            with self._span("kf.local_ba"):
+            with stage_span("kf.local_ba"):
                 self.map_state = map_ba(self.map_state, cfg, center_kf=kf_id)
             # the velocity is kept across the BA correction
             self.T_cw = map_ops._row(self.map_state.kf_pose, kf_id)
         if tr.run_kf_culling:
-            with self._span("kf.cull_keyframe"):
+            with stage_span("kf.cull_keyframe"):
                 self.map_state = map_ops.cull_one_keyframe(self.map_state)
         self.last_kf_frame = frame_id
-        with self._span("kf.readback"):
+        with stage_span("kf.readback"):
             b = to_numpy(_kf_scalar_bundle(self.map_state, kf_id, prev_kf))
         kf_i = int(b[0])
         self._n_kfs_host = int(b[1])
@@ -462,10 +460,8 @@ class Tracker:
     def _track_deferred(self, gray, depth, ts: float) -> TrackingResult:
         """Enqueue this frame's extract+track without a readback; its
         decision is resolved at the start of the next frame."""
-        # track.dispatch: the host's enqueue; track.device: the frame's
-        # work on the stream, between CUDA events on the card
-        with PROFILER.span("track.device", device=self.device), \
-                stage_span("track.dispatch"):
+        # track.dispatch: the host's enqueue of the frame's work
+        with stage_span("track.dispatch"):
             feats, out = extract_and_track(
                 gray, depth, self.map_state, self.T_cw, self.velocity,
                 self.R_cm, self._ref_kf_dev(), self.cfg, device=self.device)
@@ -484,16 +480,18 @@ class Tracker:
         """Apply deferred frames' decisions, oldest first. With force=False
         the newest frame is left pending while its bundle is still on the
         way; the queue stays at most 2 deep."""
-        while self._pending:
-            entry = self._pending[0]
-            if not force and len(self._pending) <= 1 and not entry[3].is_ready():
-                return
-            self._pending.popleft()
-            self._resolve_one(entry)
-            if self.state == TrackState.LOST:
-                # later frames were enqueued off the rejected pose
-                self._pending.clear()
-                return
+        with stage_span("track.resolve"):
+            while self._pending:
+                entry = self._pending[0]
+                if (not force and len(self._pending) <= 1
+                        and not entry[3].is_ready()):
+                    return
+                self._pending.popleft()
+                self._resolve_one(entry)
+                if self.state == TrackState.LOST:
+                    # later frames were enqueued off the rejected pose
+                    self._pending.clear()
+                    return
 
     def _resolve_one(self, entry):
         (ts, feats, out, host, T_prev, R_cm_prev, frame_id, was_loc,

@@ -1,26 +1,42 @@
 """Stage profiling: the reference's `StageProfiler` (count, total, mean,
-p50 and p95 ms per named span), and `stage_span`, the block every stage of
-the port runs in.
+p50 and p95 ms per named span), with each span's parent, self time and host
+syncs, and `stage_span`, the block every stage of the port runs in.
 
 `PROFILER` is off by default; `DRSLAM_PROFILE_STAGES=1` in the environment
-or `PROFILER.enable()` turns it on. A span on the GPU records a pair of CUDA
-events on the current stream and adds no synchronise of its own: the
-elapsed times are read in `summary()`, after one synchronise. That is the
-stream time between the two events; for a stage bound by the host's
-launches it is the stage's wall time. A span on the CPU, or one given no
-device, is timed with `time.perf_counter`.
+or `PROFILER.enable()` turns it on. Every span is host time on one
+monotonic clock, `time.perf_counter_ns` plus an offset fixed at `enable()`
+that puts it on the clock of `torch.profiler`'s events (the Unix clock), so
+a span and its `record_function` event in a trace cover the same interval.
+While enabled the profiler keeps one record per span (`Span`, in
+`records`, in order of entry): name, parent (the innermost span open at
+entry), frame id (given to the root span, `track.call`, and inherited by
+the spans inside it), start, end, and the host syncs counted in it. It
+times the thread that called `enable()`, the one that tracks: a span
+opened on another thread (the live viewer's worker extracts a frame's
+features again for its overlay) records nothing, and a sync there is not
+counted.
 
-`stage_span(name, events, device)` is a `torch.profiler.record_function`
-block under the reference's span name (`kf.local_ba`, `loop.process`, ...)
-and a `PROFILER` span. `events` is None or a list: on the GPU each span
-also appends (name, start, end) CUDA events to it, for the caller to read
-with `start.elapsed_time(end)` once it has synchronised.
+Host syncs: while enabled on a machine with CUDA, the profiler sets
+`torch.cuda.set_sync_debug_mode("warn")`, so that every implicit wait of
+the host for the device (`.item()`, `.cpu()`, `nonzero`, boolean indexing,
+a blocking host-to-device copy) raises a warning; each is counted into the
+innermost open span and none is shown. The explicit waits are counted at
+their sites with `count_sync()`. `disable()` restores the sync mode and
+the warning filters. Off, a span costs one check: it records nothing,
+allocates nothing on the device and never synchronises, and the sync mode
+is never touched.
+
+`stage_span(name, frame)` is a `torch.profiler.record_function` block
+under the reference's span name (`track.dispatch`, `kf.local_ba`,
+`loop.process`, ...) and a `PROFILER` span, so a device trace carries
+every span on its own clock.
 
 Usage:
-    from dr_slam_torch.utils.profiling import PROFILER
-    with PROFILER.span("track.device", device=dev):
+    from dr_slam_torch.utils.profiling import PROFILER, stage_span
+    with stage_span("kf.local_ba"):
         ...
-    PROFILER.summary()  # {stage: {count, total_ms, mean_ms, p50_ms, p95_ms}}
+    PROFILER.summary()  # {stage: {count, total_ms, mean_ms, p50_ms, p95_ms,
+                        #          self_ms, syncs, parent}}
 """
 
 from __future__ import annotations
@@ -29,81 +45,163 @@ import collections
 import contextlib
 import json
 import os
+import threading
 import time
+import warnings
 
 import torch
 
+# the warning that torch.cuda's sync debug mode raises at each sync
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
-def _on_cuda(device, sync) -> bool:
-    if device is not None:
-        return torch.device(device).type == "cuda"
-    return isinstance(sync, torch.Tensor) and sync.is_cuda
+
+def _unix_offset_ns(reads: int = 8) -> int:
+    """The Unix clock less `time.perf_counter_ns`, from the read of
+    `time.time_ns` most tightly bracketed by two of the monotonic clock (a
+    thread preempted between two reads would shift every span)."""
+    best = None
+    for _ in range(reads):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, unix - (a + b) // 2)
+    return best[1]
+
+
+class Span:
+    """One span's record; `parent` is the index of the enclosing span's
+    record in `StageProfiler.records` (-1: none), `end_ns` None while
+    open."""
+    __slots__ = ("name", "parent", "frame", "start_ns", "end_ns", "syncs")
+
+    def __init__(self, name: str, parent: int, frame, start_ns: int):
+        self.name, self.parent, self.frame = name, parent, frame
+        self.start_ns, self.end_ns, self.syncs = start_ns, None, 0
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
 
 
 class StageProfiler:
     def __init__(self):
-        self._times = collections.defaultdict(list)  # name -> [ms]
-        self._events = []        # (name, start, end) CUDA events not yet read
-        self.enabled = bool(os.environ.get("DRSLAM_PROFILE_STAGES"))
+        self.records: list[Span] = []
+        self._open: list[int] = []   # open spans' indices, innermost last
+        self._offset_ns = 0
+        self._watch = None           # (sync mode, catch_warnings): counting
+        self._owner = None           # the thread that is timed
+        self.enabled = False
+        if os.environ.get("DRSLAM_PROFILE_STAGES"):
+            self.enable()
 
     def enable(self):
+        if self.enabled:
+            return
+        self._offset_ns = _unix_offset_ns()
+        self._owner = threading.get_ident()
         self.enabled = True
+        if torch.cuda.is_available():
+            self._watch_syncs()
 
     def disable(self):
+        if not self.enabled:
+            return
         self.enabled = False
+        if self._watch is not None:
+            mode, catcher = self._watch
+            self._watch = None
+            torch.cuda.set_sync_debug_mode(mode)
+            catcher.__exit__(None, None, None)
 
     def reset(self):
-        self._times.clear()
-        self._events.clear()
+        self.records.clear()
+        self._open.clear()
+
+    def _watch_syncs(self):
+        """Count torch.cuda's sync warnings instead of showing them, each
+        time ("always": the default filter shows a location once)."""
+        catcher = warnings.catch_warnings()
+        catcher.__enter__()
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        warnings.filterwarnings(
+            "ignore", message="Synchronization debug mode is a prototype")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if str(message).startswith(SYNC_WARNING):
+                self.count_sync()
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        self._watch = (torch.cuda.get_sync_debug_mode(), catcher)
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def count_sync(self):
+        """One wait of the host for the device, counted into the innermost
+        open span (outside every span, or on another thread, it is not
+        counted)."""
+        if (self.enabled and self._open
+                and threading.get_ident() == self._owner):
+            self.records[self._open[-1]].syncs += 1
+
+    def _now_ns(self) -> int:
+        return time.perf_counter_ns() + self._offset_ns
 
     @contextlib.contextmanager
-    def span(self, name: str, sync=None, device=None):
-        """Time a stage. With `device` a CUDA device, or `sync` a CUDA
-        tensor, the span is a pair of CUDA events around the stage's work
-        on the current stream; else host time."""
-        if not self.enabled:
+    def span(self, name: str, frame=None):
+        """Time a stage on the host. `frame` is the frame id; None takes
+        the enclosing span's."""
+        if not self.enabled or threading.get_ident() != self._owner:
             yield
             return
-        if _on_cuda(device, sync):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            try:
-                yield
-            finally:
-                b.record()
-                self._events.append((name, a, b))
-            return
-        t0 = time.perf_counter()
+        parent = self._open[-1] if self._open else -1
+        if frame is None and parent >= 0:
+            frame = self.records[parent].frame
+        rec = Span(name, parent, frame, self._now_ns())
+        self._open.append(len(self.records))
+        self.records.append(rec)
         try:
             yield
         finally:
-            self._times[name].append((time.perf_counter() - t0) * 1e3)
-
-    def record(self, name: str, ms: float):
-        if self.enabled:
-            self._times[name].append(ms)
-
-    def _read_events(self):
-        if not self._events:
-            return
-        torch.cuda.synchronize()
-        for name, a, b in self._events:
-            self._times[name].append(a.elapsed_time(b))
-        self._events.clear()
+            rec.end_ns = self._now_ns()
+            if self._open and self.records[self._open[-1]] is rec:
+                self._open.pop()
 
     def summary(self) -> dict:
-        self._read_events()
+        """Per span name over the closed spans: count, total_ms, mean_ms,
+        p50_ms, p95_ms; self_ms, the total less the time its child spans
+        cover; syncs, those counted in the span itself (not in its
+        children); parent, the enclosing span's name that most of its
+        records had (None at the root)."""
+        recs = self.records
+        child_ns = [0] * len(recs)
+        by_name = collections.defaultdict(list)
+        for i, r in enumerate(recs):
+            if r.end_ns is None:
+                continue
+            by_name[r.name].append(i)
+            if r.parent >= 0:
+                child_ns[r.parent] += r.end_ns - r.start_ns
         out = {}
-        for name, ts in sorted(self._times.items()):
-            s = sorted(ts)
+        for name, idx in sorted(by_name.items()):
+            s = sorted(recs[i].ms for i in idx)
             n = len(s)
+            own_ns = sum(recs[i].end_ns - recs[i].start_ns - child_ns[i]
+                         for i in idx)
+            parents = collections.Counter(
+                recs[recs[i].parent].name if recs[i].parent >= 0 else None
+                for i in idx)
             out[name] = {
                 "count": n,
                 "total_ms": round(sum(s), 3),
                 "mean_ms": round(sum(s) / n, 3),
                 "p50_ms": round(s[n // 2], 3),
                 "p95_ms": round(s[min(n - 1, int(0.95 * n))], 3),
+                "self_ms": round(own_ns * 1e-6, 3),
+                "syncs": sum(recs[i].syncs for i in idx),
+                "parent": parents.most_common(1)[0][0],
             }
         return out
 
@@ -116,15 +214,7 @@ PROFILER = StageProfiler()
 
 
 @contextlib.contextmanager
-def stage_span(name: str, events: list | None = None, device=None):
-    with torch.profiler.record_function(name), \
-            PROFILER.span(name, device=device):
-        if events is None or not _on_cuda(device, None):
-            yield
-            return
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+def stage_span(name: str, frame=None):
+    """A `record_function` block and a `PROFILER` span, both `name`."""
+    with torch.profiler.record_function(name), PROFILER.span(name, frame):
         yield
-        b.record()
-        events.append((name, a, b))
