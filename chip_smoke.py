@@ -30,7 +30,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
    by scripts/make_torch_pyramid_fixture.py): every level within
    PYRAMID_TOL; prints each level's largest gap and differing pixels
    against JAX's and against the port's own levels on the host's CPU, and
-   the ms of one pyramid on the card.
+   the ms of one pyramid on the card. Then the pose kernel
+   (`pose_kernel_phase`, csrc/pose_gn.cu): each frame must launch it twice;
+   frame 12's two solves, their arguments recorded in the main-path loop
+   (`build_pose_obs` on the fixture's map), are held against
+   `pose_optimize`'s plain body by `pose_gaps` (pose within POSE_T_TOL, a
+   mask flip only within POSE_MASK_REL of its threshold, n_inliers within
+   the point flips, chi2 within POSE_CHI2_REL) and two launches must agree
+   bit for bit; then each is timed: 20 solves captured into a CUDA graph,
+   beside the eager wrapper call, the plain body and its bound.
 4. tracker: `Tracker(cfg, device="cuda").process_frame` from an empty map
    over the 24 frames of dr_slam_torch/data/mapping_corridor.npz (made by
    scripts/make_torch_mapping_fixture.py), in the default deferred mode
@@ -242,7 +250,10 @@ The kernel table's `launches` adds the main path's, the tracker's, the two
 System scenarios', the loop phase's, the device loop's, the multi-sequence
 phase's, the runner's and node's, the detector System's, the synthetic
 run script's, the accuracy protocol's, the three behaviour runs' and the
-three bench legs' that track (odometry, tracking, device loop).
+three bench legs' that track (odometry, tracking, device loop). The
+pose kernel's row adds the same paths' pose launches, each phase's counted
+from 0 (the pose phase's timing calls are left out); the main path and the
+tracker must launch it exactly twice per tracked frame.
 
 The line before the last is the card's name and power limit; the kernel
 table is one JSON line before it; the last line is the result object."""
@@ -379,6 +390,66 @@ def _bound(args) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def _pose_bound(counts: dict, steps: int) -> tuple[float, str]:
+    """Least time for one pose solve on these capacities. Operations: per
+    step and residual row, J^T w (6), the 21 upper entries of J^T W J and
+    the 6 of J^T W r (2 each), at the float32 rate; rows: 4 a point, 2 a
+    line, 3 a plane, 2 a parallel and 1 a vertical relation, 6 the prior.
+    Bytes: every input read once (float32 positions, observations and
+    weights, one byte a flag) and the results written once."""
+    NP, NL, NF, NS = (counts[k] for k in ("NP", "NL", "NF", "NS"))
+    rows = 4 * NP + 2 * NL + 3 * NF + 3 * NS + 6
+    ops = 60.0 * rows * steps
+    nbytes = (64 + NP * (4 * 7 + 1) + NL * (4 * 10 + 1) + (NF + 2 * NS) * 33
+              + 64 + NP + NL + NF + 8 + 4)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def pose_kernel_phase(solves: list, card: str) -> dict:
+    """The pose kernel on the main path's first frame: its two solves'
+    arguments (`solves`, recorded by `pose_solves` in the main-path loop),
+    each held against the plain body (`pose_gaps`), launched twice to
+    repeat bit for bit, and timed. Returns the kernel table's numbers: the
+    larger pose gap of the two, the times of the second (structural)
+    solve."""
+    import torch
+
+    from dr_slam_torch._smoke import pose_gaps
+    from dr_slam_torch.optimize import pose_gn, pose_opt
+
+    row = {"max_abs_err": 0.0}
+    for which, args in zip(("first", "second"), solves):
+        out = pose_opt.PoseOptResult(*pose_gn.solve(*args))
+        again = pose_opt.PoseOptResult(*pose_gn.solve(*args))
+        torch.cuda.synchronize()
+        plain = pose_opt._pose_optimize_plain(*args)
+        gaps, fails = pose_gaps(args, out, plain)
+        repeat = all(torch.equal(getattr(out, f), getattr(again, f))
+                     for f in pose_opt.PoseOptResult._fields)
+        counts = pose_gn.check_inputs(*args[:2])
+        ms = _graph_ms(lambda: pose_gn.solve(*args), 20, torch)
+        wrapper_ms = _time_ms(lambda: pose_opt.pose_optimize(*args), 50,
+                              torch)
+        plain_ms = _time_ms(lambda: pose_opt._pose_optimize_plain(*args), 3,
+                            torch)
+        bound_ms, bound_by = _pose_bound(counts, args[6] * args[7])
+        print(f"[pose] {which} solve {json.dumps(counts)} against the plain "
+              f"body {json.dumps(gaps)}; repeat bit for bit {repeat}; "
+              f"{ms:.5f} ms per solve (graph), wrapper call {wrapper_ms:.5f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms by "
+              f"{bound_by} on {card}", flush=True)
+        if fails or not repeat:
+            fail(f"pose kernel disagrees with its plain body ({which} "
+                 f"solve): " + "; ".join(
+                     fails + ([] if repeat else ["no bit-for-bit repeat"])))
+        row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=max(row["max_abs_err"], gaps["dT"]))
+    return row
+
+
 def _stream_ms(torch, dev, fn):
     """(fn's result, ms between two CUDA events around it after a
     synchronise; on the CPU, wall ms)."""
@@ -471,7 +542,8 @@ def system_phase(dev, cfg, card: str) -> tuple[dict, float]:
                       f"ref_kf {run.ref_kf[i]} (jax "
                       f"{int(data[f'{name}__ref_kf'][i])}) n_inliers "
                       f"{r.n_inliers} (jax {int(data[f'{name}__n_inliers'][i])})"
-                      f" launches {run.launches[i]} {run.ms[i]:.1f} ms"
+                      f" launches {run.launches[i]} pose launches "
+                      f"{run.pose_launches[i]} {run.ms[i]:.1f} ms"
                       + (" relocalized" if run.reloc[i] else ""), flush=True)
             reloc_ms = [ms for ms, rel in zip(run.ms, run.reloc) if rel]
             print(f"[system {name}] {what}: {json.dumps(gaps)}; relocalized "
@@ -485,6 +557,15 @@ def system_phase(dev, cfg, card: str) -> tuple[dict, float]:
                     rel and n < 1 for rel, n in zip(run.reloc, run.launches)):
                 fail(f"system {name}: a relocalized frame did not launch the "
                      f"matcher: {run.launches}")
+            # tracked frames: the step's two solves; relocalized frames: one
+            # or two a candidate, each candidate then verified by a matcher
+            # launch
+            if dev.type == "cuda" and not all(
+                    1 <= p <= n if rel else p == 2 for rel, p, n in
+                    zip(run.reloc, run.pose_launches, run.launches)):
+                fail(f"system {name}: pose kernel launches "
+                     f"{list(run.pose_launches)} (relocalized "
+                     f"{run.reloc}, matcher launches {run.launches})")
             if fails:
                 fail(f"system {name} disagrees with the JAX System: "
                      + "; ".join(fails))
@@ -2272,11 +2353,12 @@ def main() -> None:
     import numpy as np
 
     from dr_slam_torch._smoke import (card_line, load_fixture,
-                                      load_mapping_fixture,
+                                      load_mapping_fixture, pose_solves,
                                       register_shipped_codebooks, run_tracker,
                                       synthetic_matcher_inputs, tracker_gaps)
     from dr_slam_torch.config import tum_freiburg3
     from dr_slam_torch.ops import match_cuda
+    from dr_slam_torch.optimize import pose_gn, pose_opt
     from dr_slam_torch.slam import map_ops
     from dr_slam_torch.slam.track_step import extract_and_track
 
@@ -2290,15 +2372,19 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from dr_slam_torch.io import native_loader
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         loader_build = pool.submit(native_loader.build)
+        pose_build = pool.submit(pose_gn.build)
         info = match_cuda.build()
         loader_info = loader_build.result()
+        pose_info = pose_build.result()
     print(f"[build] gated_top2_hamming.cu -> {os.path.basename(info['path'])} "
-          f"in {info['seconds']:.1f} s; frame_loader.cpp -> "
+          f"in {info['seconds']:.1f} s; pose_gn.cu -> "
+          f"{os.path.basename(pose_info['path'])} in "
+          f"{pose_info['seconds']:.1f} s; frame_loader.cpp -> "
           f"{os.path.basename(loader_info['path'])} in "
           f"{loader_info['seconds']:.1f} s", flush=True)
-    for line in info["log"].splitlines():
+    for line in (info["log"] + "\n" + pose_info["log"]).splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"[build] {line.strip()}")
 
@@ -2344,14 +2430,16 @@ def main() -> None:
 
     map_ops.gated_top2_hamming = capture
     match_cuda.gated_top2_hamming.launches = 0
+    pose_opt.pose_optimize.launches = 0
     st, T, V, R = fx.state, fx.T_last, fx.velocity, fx.R_cm
     outs = []
     t0 = time.perf_counter()
-    for g, d in fx.frames:
-        feats, out = extract_and_track(g, d, st, T, V, R, fx.ref_kf, cfg,
-                                       device="cuda")
-        st, T, V, R = out.new_map_state, out.T_cw, out.velocity, out.R_cm
-        outs.append(out)
+    with pose_solves() as solves:
+        for g, d in fx.frames:
+            feats, out = extract_and_track(g, d, st, T, V, R, fx.ref_kf, cfg,
+                                           device="cuda")
+            st, T, V, R = out.new_map_state, out.T_cw, out.velocity, out.R_cm
+            outs.append(out)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
     launches = match_cuda.gated_top2_hamming.launches
@@ -2360,6 +2448,11 @@ def main() -> None:
           f"includes warm-up); kernel launches {launches}", flush=True)
     if launches != 2 * len(fx.frames):
         fail(f"expected {2 * len(fx.frames)} kernel launches, got {launches}")
+    pose_launches = {"main": pose_opt.pose_optimize.launches}
+    print(f"[main] pose kernel launches {pose_launches['main']}", flush=True)
+    if not pose_launches["main"] == len(solves) == 2 * len(fx.frames):
+        fail(f"expected {2 * len(fx.frames)} pose kernel launches, got "
+             f"{pose_launches['main']}")
 
     for i, out in enumerate(outs):
         Tc = out.T_cw.cpu().numpy()
@@ -2408,14 +2501,17 @@ def main() -> None:
           f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
           f"{bound_by}) on {card}; device ms by kernel {json.dumps(split)}",
           flush=True)
+    pose_row = pose_kernel_phase(solves[:2], card)
 
     # --- 4. tracker from an empty map ------------------------------------------
     mdata = load_mapping_fixture()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     match_cuda.gated_top2_hamming.launches = 0
+    pose_opt.pose_optimize.launches = 0
     run = run_tracker(mdata, cfg, dev)
     tracker_launches = match_cuda.gated_top2_hamming.launches
+    pose_launches["tracker"] = pose_opt.pose_optimize.launches
     peak_gib = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     gaps, fails = tracker_gaps(run, mdata)
     n = len(run.results)
@@ -2423,7 +2519,8 @@ def main() -> None:
         print(f"[tracker] frame {i}: {r.state.name} n_inliers {r.n_inliers} "
               f"(jax {int(mdata['n_inliers'][i])}) n_matches {r.n_matches} "
               f"(jax {int(mdata['n_matches'][i])}) launches "
-              f"{run.launches[i]}", flush=True)
+              f"{run.launches[i]} pose launches {run.pose_launches[i]}",
+              flush=True)
     for k, stages in enumerate(run.keyframes):
         total = sum(ms for _, ms in stages)
         what = "initialization" if k == 0 else "local-mapping pass"
@@ -2449,37 +2546,54 @@ def main() -> None:
     if run.launches != [0] + [2] * (n - 1) or tracker_launches != 2 * (n - 1):
         fail(f"tracker: expected 2 matcher launches per tracked frame, got "
              f"{run.launches}")
+    if (list(run.pose_launches) != [0] + [2] * (n - 1)
+            or pose_launches["tracker"] != 2 * (n - 1)):
+        fail(f"tracker: expected 2 pose kernel launches per tracked frame, "
+             f"got {run.pose_launches}")
     if fails:
         fail("tracker disagrees with the JAX tracker: " + "; ".join(fails))
 
+    def counted(path, phase, *a):
+        """phase(*a), its pose kernel launches kept under `path`."""
+        pose_opt.pose_optimize.launches = 0
+        out = phase(*a)
+        pose_launches[path] = pose_opt.pose_optimize.launches
+        return out
+
     # --- 5. System: relocalization into a saved map ---------------------------
-    system_launches, err5 = system_phase(dev, cfg, card)
+    system_launches, err5 = counted("system", system_phase, dev, cfg, card)
     err = max(err, err5)
     # --- 6. loop closing on the loop fixture -------------------------------------
-    loop_launches = loop_phase(dev, card)
+    loop_launches = counted("loop", loop_phase, dev, card)
     # --- 7. the device-resident loop ---------------------------------------------
-    device_loop_launches, err7, loop_run = device_loop_phase(dev, cfg, card)
+    device_loop_launches, err7, loop_run = counted(
+        "device loop", device_loop_phase, dev, cfg, card)
     err = max(err, err7)
     # --- 8. multi-sequence ---------------------------------------------------------
-    multi_launches = multi_seq_phase(dev, cfg, card, loop_run)
+    multi_launches = counted("multi-sequence", multi_seq_phase, dev, cfg, card,
+                             loop_run)
     # --- 9. the dataset runner and the streaming node -----------------------------
-    tum_launches, tum_numbers = tum_phase(dev, cfg, card)
+    tum_launches, tum_numbers = counted("runner and node", tum_phase, dev,
+                                        cfg, card)
     err = max(err, tum_numbers["max_abs_err"])
     # --- 10. the detector, the cylinders and the viewers ---------------------
-    detect_launches, detect_numbers = detect_phase(dev, cfg, card,
-                                                   tum_numbers["frame_ms"])
+    detect_launches, detect_numbers = counted(
+        "detector", detect_phase, dev, cfg, card, tum_numbers["frame_ms"])
     err = max(err, detect_numbers["max_abs_err"])
     # --- 11. the renderer, the run script, sharded solves, the trainer -------
-    synth_launches, synth_numbers = synthetic_phase(dev, cfg, card)
+    synth_launches, synth_numbers = counted("synthetic", synthetic_phase, dev,
+                                            cfg, card)
     err = max(err, synth_numbers["max_abs_err"])
     # --- 12. the closed-loop accuracy protocol -------------------------------
-    accuracy_launches, accuracy_numbers = accuracy_phase(dev, card)
+    accuracy_launches, accuracy_numbers = counted("accuracy protocol",
+                                                  accuracy_phase, dev, card)
     err = max(err, accuracy_numbers["max_abs_err"])
     # --- 13. the reference behaviours: the wall, the office, the loop's wall -
-    behaviour_launches, err13 = behaviours_phase(dev, card)
+    behaviour_launches, err13 = counted("behaviours", behaviours_phase, dev,
+                                        card)
     err = max(err, err13)
     # --- 14. bench_torch.py's legs ---------------------------------------------
-    bench_launches, err14 = bench_phase(dev, card)
+    bench_launches, err14 = counted("bench legs", bench_phase, dev, card)
     err = max(err, err14)
     print(f"[kernel] launches by path: main {launches}, tracker "
           f"{tracker_launches}, system a {system_launches['a']}, system b "
@@ -2490,6 +2604,8 @@ def main() -> None:
           f"accuracy protocol {accuracy_launches}, behaviours "
           f"{json.dumps(behaviour_launches)}, bench legs "
           f"{json.dumps(bench_launches)}", flush=True)
+    print(f"[pose] pose kernel launches by path (the pose phase's timing "
+          f"calls left out): {json.dumps(pose_launches)}", flush=True)
     total_launches = (launches + tracker_launches
                       + sum(system_launches.values()) + loop_launches
                       + device_loop_launches + multi_launches
@@ -2505,7 +2621,13 @@ def main() -> None:
         "replaces": REPLACES,
         "launches": total_launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "pose_gn", "route": "cuda",
+        "source": "dr_slam_torch/csrc/pose_gn.cu", "replaces": None,
+        "launches": sum(pose_launches.values()),
+        "max_abs_err": pose_row["max_abs_err"], "ms": pose_row["ms"],
+        "plain_ms": pose_row["plain_ms"], "bound_ms": pose_row["bound_ms"],
+        "bound_by": pose_row["bound_by"], "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

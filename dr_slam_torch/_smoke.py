@@ -8,8 +8,10 @@ fixture with the DeviceLoopTracker run over the mapping fixture's frames,
 the TUM fixture with the dataset runner and a streaming-node session
 over the same frames exported as a TUM sequence, and the synthetic fixture
 with its scenes, the realistic-capacity map configuration and the map
-state's checksums, and the closed-loop accuracy protocol of
-scripts/bench_accuracy.py with its fixture and bounds."""
+state's checksums, the closed-loop accuracy protocol of
+scripts/bench_accuracy.py with its fixture and bounds, and the tracking
+step's pose solves with the bounds of the pose kernel against its plain
+body."""
 
 from __future__ import annotations
 
@@ -132,6 +134,95 @@ def pipelined(fx: Fixture, n: int, cfg):
     return out
 
 
+# The pose kernel (csrc/pose_gn.cu) against pose_optimize's plain body on the
+# same card. The kernel sums J^T W J and J^T W r per thread and then over the
+# block, where the plain body leaves them to cuBLAS and ATen's reductions, so
+# the float32 sums differ in order, and 40 dependent steps carry that
+# forward. A converged pose agrees to about 1e-6; POSE_T_TOL leaves room for
+# one mask flip. A mask may flip only for an edge whose chi2 at the plain
+# body's pose lies within POSE_MASK_REL of its threshold, n_inliers may move
+# only by the point flips, and the total chi2 agrees to POSE_CHI2_REL.
+POSE_T_TOL = 1e-4     # max |T_cw - T_cw plain| entry (rotation, metres)
+POSE_MASK_REL = 1e-3  # |chi2 - threshold| / threshold of an edge that may flip
+POSE_CHI2_REL = 1e-3  # total chi2 against the plain body's
+
+
+@contextlib.contextmanager
+def pose_solves():
+    """Yields a list that receives, for each `pose_optimize` call of the
+    tracking step while open, its arguments in `_pose_optimize_plain`'s
+    order (the defaults filled in), cloned before the solve."""
+    import inspect
+
+    from dr_slam_torch.optimize import pose_opt
+    from dr_slam_torch.slam import track_step
+
+    solve = track_step.pose_optimize
+    sig = inspect.signature(pose_opt.pose_optimize)
+    solves = []
+
+    def record(*a, **kw):
+        bound = sig.bind(*a, **kw)
+        bound.apply_defaults()
+        T0, obs, *rest = bound.arguments.values()
+        solves.append((T0.clone(), pose_opt.PoseObservations(
+            *(x.clone() for x in obs)), *rest))
+        return solve(*a, **kw)
+
+    track_step.pose_optimize = record
+    try:
+        yield solves
+    finally:
+        track_step.pose_optimize = solve
+
+
+def pose_gaps(args: tuple, out, plain) -> tuple[dict, list]:
+    """The pose kernel's result `out` against the plain body's `plain`, both
+    on `args` (`_pose_optimize_plain`'s order): ({"dT", "flips" per mask,
+    "n_inliers" (kernel, plain), "chi2" (kernel, plain)}, the failures
+    against the POSE_* bounds)."""
+    from dr_slam_torch.optimize import pose_opt
+    from dr_slam_torch.optimize import residuals as res
+
+    T0, obs, K4, bf = args[:4]
+    angle_info, dist_info, plane_chi2 = args[8:11]
+    T = plain.T_cw
+    _, _, c_pt, stereo = res.point_residuals(
+        T, obs.pt_world, obs.pt_obs, obs.pt_inv_sigma2, obs.pt_valid, K4, bf)
+    _, _, c_ln = res.line_residuals(T, obs.ln_world, obs.ln_obs,
+                                    obs.ln_inv_sigma2, obs.ln_valid, K4)
+    _, _, c_pl = res.plane_residuals(T, obs.pl_world, obs.pl_obs,
+                                     obs.pl_valid, angle_info, dist_info)
+    edges = (("pt_inlier", c_pt, torch.where(stereo, pose_opt.CHI2_STEREO,
+                                              pose_opt.CHI2_MONO)),
+             ("ln_inlier", c_ln, 2 * pose_opt.CHI2_LINE),
+             ("pl_inlier", c_pl, plane_chi2))
+    n_in = (int(out.n_inliers), int(plain.n_inliers))
+    chi2 = (float(out.chi2), float(plain.chi2))
+    gaps = {"dT": float((out.T_cw - plain.T_cw).abs().max()), "flips": {},
+            "n_inliers": n_in, "chi2": chi2}
+    fails = []
+    if not bool(torch.isfinite(out.T_cw).all()):
+        fails.append("T_cw not finite")
+    if gaps["dT"] > POSE_T_TOL:
+        fails.append(f"|dT| {gaps['dT']:.3e} > {POSE_T_TOL}")
+    for name, c, th in edges:
+        diff = getattr(out, name) != getattr(plain, name)
+        far = diff & ((c - th).abs() > POSE_MASK_REL * th)
+        gaps["flips"][name] = int(diff.sum())
+        if bool(far.any()):
+            fails.append(f"{name}: {int(far.sum())} flips farther than "
+                         f"{POSE_MASK_REL} of the threshold")
+    if n_in[0] != int(out.pt_inlier.sum()):
+        fails.append(f"n_inliers {n_in[0]} is not the point mask's count")
+    if abs(n_in[0] - n_in[1]) > gaps["flips"]["pt_inlier"]:
+        fails.append(f"n_inliers {n_in[0]} against {n_in[1]}, more than the "
+                     "point flips")
+    if abs(chi2[0] - chi2[1]) > max(POSE_CHI2_REL * abs(chi2[1]), 1e-6):
+        fails.append(f"chi2 {chi2[0]} against {chi2[1]}")
+    return gaps, fails
+
+
 def synthetic_matcher_inputs(K=1024, NC=32768, n_valid=3000, n_ties=64,
                              seed=0, device="cuda"):
     """Matcher inputs shaped like the main path's: K keypoints over a
@@ -197,6 +288,7 @@ class TrackerRun(NamedTuple):
     launches: list       # matcher launches per frame
     seconds: float       # wall time of the frames (synchronised per frame)
     keyframes: list      # per insertion [(stage, host ms)]
+    pose_launches: tuple = ()  # pose kernel launches per frame
 
 
 @contextlib.contextmanager
@@ -236,12 +328,13 @@ def run_tracker(data: dict, cfg, device) -> TrackerRun:
     by exactly one frame. Each keyframe stage is timed by the stage
     profiler."""
     from dr_slam_torch.ops.match_cuda import gated_top2_hamming
+    from dr_slam_torch.optimize.pose_opt import pose_optimize
     from dr_slam_torch.slam.tracking import Tracker
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     tracker = Tracker(cfg, device=dev)
-    results, launches = [], []
+    results, launches, poses = [], [], []
     with stage_records() as records:
         t0 = time.perf_counter()
         for i in range(len(data["gray"])):
@@ -249,14 +342,16 @@ def run_tracker(data: dict, cfg, device) -> TrackerRun:
             depth = (data["depth"][i]
                      / cfg.camera.depth_factor).astype(np.float32)
             before = gated_top2_hamming.launches
+            before_pose = pose_optimize.launches
             results.append(tracker.process_frame(gray, depth, i / 30.0))
             if cuda:
                 torch.cuda.synchronize()
             launches.append(gated_top2_hamming.launches - before)
+            poses.append(pose_optimize.launches - before_pose)
         seconds = time.perf_counter() - t0
         tracker.flush()
     return TrackerRun(results, tracker, launches, seconds,
-                      keyframe_stages(records))
+                      keyframe_stages(records), tuple(poses))
 
 
 # Bounds of a Tracker run against the JAX outputs in the mapping fixture.
@@ -462,6 +557,7 @@ class SystemRun(NamedTuple):
     reloc: list          # per frame: _relocalize ran (bool)
     fingerprints: tuple  # the map's fingerprint after load and at the end
     matcher_calls: list  # [(frame, wide: no scale gate, args)] in reloc
+    pose_launches: tuple = ()  # pose kernel launches per frame
 
 
 def run_system(data: dict, run: str, cfg, device, map_path: str,
@@ -474,6 +570,7 @@ def run_system(data: dict, run: str, cfg, device, map_path: str,
     localization mode with loop closing off, run "b" has loop closing on.
     With `capture`, the matcher's inputs inside relocalization are kept."""
     from dr_slam_torch.ops.match_cuda import gated_top2_hamming
+    from dr_slam_torch.optimize.pose_opt import pose_optimize
     from dr_slam_torch.slam import map_ops
     from dr_slam_torch.slam.system import System
 
@@ -503,7 +600,7 @@ def run_system(data: dict, run: str, cfg, device, map_path: str,
 
     tr._relocalize = watched_reloc
     map_ops.gated_top2_hamming = watched_kernel
-    results, ref_kf, launches, ms, relocs = [], [], [], [], []
+    results, ref_kf, launches, ms, relocs, poses = [], [], [], [], [], []
     order = [int(i) for i in data[f"{run}__frame"]]
     first = int(data["first_frame"])
     try:
@@ -520,12 +617,14 @@ def run_system(data: dict, run: str, cfg, device, map_path: str,
             depth = (d / cfg.camera.depth_factor).astype(np.float32)
             now.update(frame=frame, reloc=False)
             before = gated_top2_hamming.launches
+            before_pose = pose_optimize.launches
             t0 = time.perf_counter()
             results.append(sysm.track_rgbd(gray, depth, ts))
             sysm.block_until_ready()
             ms.append((time.perf_counter() - t0) * 1e3)
             relocs.append(now["reloc"])
             launches.append(gated_top2_hamming.launches - before)
+            poses.append(pose_optimize.launches - before_pose)
             ref_kf.append(tr.ref_kf)
         tr.flush()
         sysm.block_until_ready()
@@ -534,7 +633,7 @@ def run_system(data: dict, run: str, cfg, device, map_path: str,
         tr._relocalize = reloc
     fp1 = map_fingerprint(tr.map_state)
     return SystemRun(results, sysm, ref_kf, launches, ms, relocs, (fp0, fp1),
-                     calls)
+                     calls, tuple(poses))
 
 
 def system_gaps(run: SystemRun, data: dict, prefix: str) -> tuple[dict, list]:

@@ -19,12 +19,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 
 import torch
 
 from dr_slam_torch.ops.orb import bits_to_signs, unpack_bits
-from dr_slam_torch.utils.build import build_library
+from dr_slam_torch.utils.build import NVCC_FLAGS, build_library, nvcc
 
 # Candidate padding rule of the matcher contract (as in the Pallas wrapper):
 # NC must be a multiple of TILE_C, padded with pt_valid = False.
@@ -33,25 +32,13 @@ _SCAN_CHUNK = 4096
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "gated_top2_hamming.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/gated_top2_hamming.cu")
-    return found
 
 
 def build() -> dict:
     """Compile the kernel (if this source has not been built yet) and return
     {"path", "seconds", "log"}."""
-    return build_library(_SRC, "gated_top2_hamming", _nvcc(), NVCC_FLAGS)
+    return build_library(_SRC, "gated_top2_hamming",
+                         nvcc("csrc/gated_top2_hamming.cu"), NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=1)

@@ -11,7 +11,13 @@ tangent update T <- se3_exp(xi) @ T with the analytic Jacobians of
 `jax.jacfwd`), reduces H = J^T W J and b = J^T W r, and solves the damped
 6x6 system. Plane, parallel and vertical edges share one batched
 evaluation; the weak motion prior is linearized with the SE(3) inverse
-left Jacobian."""
+left Jacobian.
+
+On CUDA tensors `pose_optimize` runs the whole solve as one launch of a
+hand-written kernel (`csrc/pose_gn.cu`, through `pose_gn.solve`): the plain
+body is some 30,000 tiny launches a solve, bound by the host. CPU tensors
+take the plain body, `_pose_optimize_plain`, which the JAX package's tests
+hold."""
 
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import torch
 
 from dr_slam_torch import device_const
 from dr_slam_torch.geometry import se3
+from dr_slam_torch.optimize import pose_gn
 from dr_slam_torch.optimize import residuals as res
+from dr_slam_torch.utils.profiling import stage_span
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 9.488  # 4 components: (du, dv, duR, dz)
@@ -168,7 +176,31 @@ def pose_optimize(T_init: torch.Tensor, obs: PoseObservations, K4, bf: float,
                   prior_sigma_t: float = 0.0,
                   prior_sigma_r: float = 0.0) -> PoseOptResult:
     """Optimize T_cw against the observation set; prior_sigma_t/_r > 0 add a
-    weak SE3 prior around T_init."""
+    weak SE3 prior around T_init. CPU tensors take the plain body; CUDA
+    tensors one kernel launch, counted in `pose_optimize.launches` (an input
+    the kernel does not take raises: there is no fallback)."""
+    args = (T_init, obs, K4, bf, translation_only, struct_on, n_rounds,
+            n_iters, angle_info, dist_info, plane_chi2, vp_chi2, damping,
+            prior_sigma_t, prior_sigma_r)
+    if T_init.device.type == "cpu":
+        return _pose_optimize_plain(*args)
+    with stage_span("pose_opt.kernel"):
+        out = pose_gn.solve(*args)
+    pose_optimize.launches += 1
+    return PoseOptResult(*out)
+
+
+pose_optimize.launches = 0
+
+
+def _pose_optimize_plain(T_init: torch.Tensor, obs: PoseObservations, K4,
+                         bf: float, translation_only: bool, struct_on: bool,
+                         n_rounds: int, n_iters: int, angle_info: float,
+                         dist_info: float, plane_chi2: float, vp_chi2: float,
+                         damping: float, prior_sigma_t: float,
+                         prior_sigma_r: float) -> PoseOptResult:
+    """The plain PyTorch body of `pose_optimize`: the rounds and steps as
+    Python loops over batched tensor ops."""
     dev, dt = T_init.device, T_init.dtype
     dim = 3 if translation_only else 6
     use_prior = prior_sigma_t > 0 and prior_sigma_r > 0

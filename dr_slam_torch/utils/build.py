@@ -12,11 +12,30 @@ import functools
 import hashlib
 import os
 import platform
+import shutil
 import subprocess
 import time
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
+
+# the package's CUDA sources: Hopper only, a plain C interface for ctypes
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def nvcc(src: str) -> str:
+    """The CUDA compiler: `$CUDA_HOME/bin/nvcc`, else
+    `/usr/local/cuda/bin/nvcc`, else `nvcc` on the PATH. Raises
+    RuntimeError naming `src` where there is none."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found: the CUDA toolkit is needed to "
+                           f"build {src}")
+    return found
 
 
 @functools.lru_cache(maxsize=None)

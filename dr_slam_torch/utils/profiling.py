@@ -36,7 +36,7 @@ Usage:
     with stage_span("kf.local_ba"):
         ...
     PROFILER.summary()  # {stage: {count, total_ms, mean_ms, p50_ms, p95_ms,
-                        #          self_ms, syncs, parent}}
+                        #          self_ms, syncs, parent, parents}}
 """
 
 from __future__ import annotations
@@ -174,7 +174,8 @@ class StageProfiler:
         p50_ms, p95_ms; self_ms, the total less the time its child spans
         cover; syncs, those counted in the span itself (not in its
         children); parent, the enclosing span's name that most of its
-        records had (None at the root)."""
+        records had (None at the root); parents, the count of its records
+        under each enclosing span's name (the root ones left out)."""
         recs = self.records
         child_ns = [0] * len(recs)
         by_name = collections.defaultdict(list)
@@ -202,6 +203,7 @@ class StageProfiler:
                 "self_ms": round(own_ns * 1e-6, 3),
                 "syncs": sum(recs[i].syncs for i in idx),
                 "parent": parents.most_common(1)[0][0],
+                "parents": {p: c for p, c in parents.items() if p is not None},
             }
         return out
 

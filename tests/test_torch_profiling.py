@@ -7,6 +7,7 @@ synchronises nothing. And a twin of tests/test_aux.py's run: the port's
 `stage_profile.json` at shutdown, with every span the frames pass through
 at its count per frame."""
 
+import contextlib
 import json
 import os
 import subprocess
@@ -59,7 +60,7 @@ def test_profiler_summary_and_switches():
     s = p.summary()
     assert s["a"] == {"count": 4, "total_ms": 16.0, "mean_ms": 4.0,
                       "p50_ms": 3.0, "p95_ms": 10.0, "self_ms": 16.0,
-                      "syncs": 0, "parent": None}
+                      "syncs": 0, "parent": None, "parents": {}}
     p.reset()
     assert p.summary() == {}
     p.disable()
@@ -100,6 +101,26 @@ def test_nesting_parent_and_self_time():
     assert [r.parent for r in p.records[:5]] == [-1, 0, 0, 2, 2]
     assert {r.frame for r in p.records} == {7}
     assert p.records[3].start_ns - p.records[0].start_ns == int(1.5e6)
+
+
+def test_parents_count_a_span_under_each_enclosing_span():
+    """A span opened under several parents: `parent` is the most common,
+    `parents` counts each (the root records left out), so a reader can take
+    the records under one parent alone."""
+    p, clock = _on_a_clock()
+    p.enable()
+    for outer in ("track.pose_opt", "track.pose_opt", "track.reloc", None):
+        with contextlib.ExitStack() as stack:
+            if outer:
+                stack.enter_context(p.span(outer))
+            with p.span("pose_opt.kernel"):
+                clock.advance(1.0)
+    s = p.summary()
+    assert s["pose_opt.kernel"]["count"] == 4
+    assert s["pose_opt.kernel"]["parent"] == "track.pose_opt"
+    assert s["pose_opt.kernel"]["parents"] == {"track.pose_opt": 2,
+                                               "track.reloc": 1}
+    assert s["track.reloc"]["parents"] == {}
 
 
 def test_sync_counter_attributes_each_sync_to_the_innermost_span(
