@@ -159,6 +159,23 @@ class ViewerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """The object detector the System builds and runs on every frame
+    (upstream builds its YOLOX engine in System.cc:88-89 and runs
+    Frame::ExtractObject -> YOLOX::Detect on each frame, Frame.cc:124-134,
+    1330). The defaults are YOLOX-s as published (Ge et al.,
+    arXiv:2107.08430; Megvii's exps/default/yolox_s.py): depth 0.33, width
+    0.50, a 640x640 input (the 80 COCO classes are the network's own);
+    the thresholds are the port's YOLOX defaults."""
+    depth_mul: float = 0.33
+    width_mul: float = 0.50
+    input_size: int = 640
+    score_th: float = 0.3
+    iou_th: float = 0.45
+    weights: str | None = None   # .npz checkpoint; None: the seeded init
+
+
+@dataclasses.dataclass(frozen=True)
 class SlamConfig:
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
     orb: ORBConfig = dataclasses.field(default_factory=ORBConfig)
@@ -169,6 +186,9 @@ class SlamConfig:
     tracking: TrackingConfig = dataclasses.field(default_factory=TrackingConfig)
     viewer: ViewerConfig = dataclasses.field(default_factory=ViewerConfig)
     save_path: str = "./output"
+    # the per-frame detector, None: no detector (the JAX package's
+    # configuration has no such group)
+    detector: DetectorConfig | None = None
 
     def replace(self, **kw) -> "SlamConfig":
         return dataclasses.replace(self, **kw)
@@ -264,6 +284,13 @@ def tum_freiburg3() -> SlamConfig:
         "ORBextractor.iniThFAST": 20,
         "ORBextractor.minThFAST": 7,
     })
+
+
+def tum_freiburg3_yolox() -> SlamConfig:
+    """`tum_freiburg3` as upstream builds it: YOLOX-s at 640 on every
+    frame, with the seeded random weights (trained COCO weights are not
+    shipped)."""
+    return tum_freiburg3().replace(detector=DetectorConfig())
 
 
 def icl_nuim() -> SlamConfig:

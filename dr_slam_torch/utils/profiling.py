@@ -26,6 +26,17 @@ the warning filters. Off, a span costs one check: it records nothing,
 allocates nothing on the device and never synchronises, and the sync mode
 is never touched.
 
+Stream time: `device_span(name, device)` records a timing CUDA event on
+the current stream before and after the host enqueues a block's work (the
+detector's network on its own stream). The time between them is the
+stream's wall time, not the block's kernel time: it includes gaps where
+the stream waits for the host to launch the next kernel, and time the
+kernels share the card with other streams'. The elapsed time is read only
+once the end event is done, never waited for, and `summary()` gives each
+such name its `count` of timed blocks, `device_ms` total (that stream
+time), the `pending` blocks not yet done and `syncs` 0. On the CPU, or
+off, it records nothing.
+
 `stage_span(name, frame)` is a `torch.profiler.record_function` block
 under the reference's span name (`track.dispatch`, `kf.local_ba`,
 `loop.process`, ...) and a `PROFILER` span, so a device trace carries
@@ -36,7 +47,8 @@ Usage:
     with stage_span("kf.local_ba"):
         ...
     PROFILER.summary()  # {stage: {count, total_ms, mean_ms, p50_ms, p95_ms,
-                        #          self_ms, syncs, parent, parents}}
+                        #          self_ms, syncs, parent, parents},
+                        #  device span: {count, device_ms, pending, syncs}}
 """
 
 from __future__ import annotations
@@ -87,6 +99,8 @@ class Span:
 class StageProfiler:
     def __init__(self):
         self.records: list[Span] = []
+        self._device: list = []      # (name, start, end) timing events
+        self._device_ms = collections.defaultdict(list)
         self._open: list[int] = []   # open spans' indices, innermost last
         self._offset_ns = 0
         self._watch = None           # (sync mode, catch_warnings): counting
@@ -117,6 +131,8 @@ class StageProfiler:
     def reset(self):
         self.records.clear()
         self._open.clear()
+        self._device.clear()
+        self._device_ms.clear()
 
     def _watch_syncs(self):
         """Count torch.cuda's sync warnings instead of showing them, each
@@ -169,13 +185,46 @@ class StageProfiler:
             if self._open and self.records[self._open[-1]] is rec:
                 self._open.pop()
 
+    @contextlib.contextmanager
+    def device_span(self, name: str, device):
+        """The current CUDA stream's time from before to after the block
+        enqueues its work, launch gaps and time shared with other streams
+        included: read by `summary()` once done, never waited for."""
+        if (not self.enabled or device.type != "cuda"
+                or threading.get_ident() != self._owner):
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._device.append((name, start, end))
+
+    def _read_device(self) -> dict:
+        """The device spans done so far into `_device_ms`; the count of
+        those not yet done, per name."""
+        pending = collections.Counter()
+        left = []
+        for name, start, end in self._device:
+            if end.query():
+                self._device_ms[name].append(start.elapsed_time(end))
+            else:
+                pending[name] += 1
+                left.append((name, start, end))
+        self._device = left
+        return pending
+
     def summary(self) -> dict:
         """Per span name over the closed spans: count, total_ms, mean_ms,
         p50_ms, p95_ms; self_ms, the total less the time its child spans
         cover; syncs, those counted in the span itself (not in its
         children); parent, the enclosing span's name that most of its
         records had (None at the root); parents, the count of its records
-        under each enclosing span's name (the root ones left out)."""
+        under each enclosing span's name (the root ones left out). Each
+        device span's name: count of the timed blocks done, device_ms (the
+        stream's time between its events), pending (not done yet), syncs
+        0."""
         recs = self.records
         child_ns = [0] * len(recs)
         by_name = collections.defaultdict(list)
@@ -205,6 +254,11 @@ class StageProfiler:
                 "parent": parents.most_common(1)[0][0],
                 "parents": {p: c for p, c in parents.items() if p is not None},
             }
+        pending = self._read_device()
+        for name in sorted(set(self._device_ms) | set(pending)):
+            ms = self._device_ms.get(name, [])
+            out[name] = {"count": len(ms), "device_ms": round(sum(ms), 3),
+                         "pending": pending[name], "syncs": 0}
         return out
 
     def dump(self, path: str):

@@ -13,10 +13,19 @@ PRESETS = ("tum_freiburg1", "tum_freiburg2", "tum_freiburg3", "icl_nuim",
            "tamu", "realsense", "tartanair")
 
 
+def _jax_groups(port: T.SlamConfig) -> dict:
+    """The port's configuration as a dict without its `detector` group,
+    which the JAX package's has not (and which no preset here sets)."""
+    assert port.detector is None
+    out = dataclasses.asdict(port)
+    del out["detector"]
+    return out
+
+
 @pytest.mark.parametrize("name", PRESETS)
 def test_preset_equals_the_jax_one(name):
     port, ref = getattr(T, name)(), getattr(J, name)()
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert _jax_groups(port) == dataclasses.asdict(ref)
     assert port.camera.width == 640 and port.camera.height == 480
     assert port.camera.fps == 30.0 and port.camera.depth_factor > 0
 
@@ -43,5 +52,5 @@ def test_yaml_loading_matches(tmp_path):
     path = tmp_path / "cam.yaml"
     path.write_text(text)
     port, ref = T.load_config(str(path)), J.load_config(str(path))
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert _jax_groups(port) == dataclasses.asdict(ref)
     assert port.camera.fx == 500.0 and port.save_path == "out"
